@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""On-GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py                 # ogbn-mag at scale 0.1
+    python3 chip_smoke.py --scale 1.0 --out results/smoke.json
+
+Phases (any failure ends the run with a non-zero exit and no result line):
+
+  1. environment — torch/CUDA versions, the card's name and power limit;
+  2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
+     process per source, all at once;
+  3. kernels vs plain — each kernel's wrapper on the card at ragged shapes
+     against its plain PyTorch version (stacked_mean_linear atol/rtol 1e-5:
+     the kernel sums in its own order; gather_rows exact);
+  4. the slice — a port ``Heta`` session on the GPU at the default model's
+     full width (R-GCN, hidden 64, learnable_dim 64, 2 layers, fanouts 4,3)
+     on ogbn-mag capped at in-degree 16: build_graph -> partition ->
+     profile_and_cache -> compile -> infer_all, then two embedding servers
+     (one whose cache holds the whole target table, so every flush is an
+     all-hit fetch through the gather kernel; one at the default 4 MiB, the
+     mixed hit/miss path), each answering 512 requests of 4 ids from 8
+     client threads.  Every answer is held against the store's rows and a
+     plain relu(e) @ w + b; the servers must answer with no retry, no
+     breaker trip and no degraded answer.  Kernel launch counts are reset
+     just before and read just after, and every kernel must have launched;
+  5. kernel timing — each kernel at the shapes the slice launched it with:
+     error against the plain version, kernel time (CUDA events over raw
+     launches, inputs rotated through more than the 50 MB L2), the plain
+     version's time, the library call's time where one PyTorch call
+     computes the same function, and the least time the card could take
+     (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor cores);
+  6. reference — the same session at a small scale on the GPU (kernels)
+     and on the CPU (plain PyTorch), every type's embeddings within
+     atol/rtol 1e-5.
+
+The last three lines are the card's name and power limit, one JSON object
+describing every kernel, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SRC = REPO / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50 << 20
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# timing and bounds
+# --------------------------------------------------------------------------
+
+
+def time_ms(fn, arg_sets, iters: int = 50) -> float:
+    """Mean ms per call of ``fn(*args)`` over ``iters`` calls cycling
+    through ``arg_sets`` (rotated so the working set exceeds L2), timed
+    with CUDA events after a warm-up pass."""
+    import torch
+
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def copies_to_exceed_l2(nbytes: int) -> int:
+    return max(2, min(8, math.ceil(2 * L2_BYTES / max(1, nbytes))))
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------
+# the two kernels: inputs, plain versions, timing
+# --------------------------------------------------------------------------
+
+
+def mean_linear_inputs(shape, seed, device):
+    import numpy as np
+    import torch
+
+    rb, n, f, di, do, U = shape
+    r = np.random.default_rng(seed)
+    h = torch.from_numpy(r.standard_normal((rb, n, f, di)).astype(np.float32)).to(device)
+    mask = torch.from_numpy(r.random((rb, n, f)) > 0.3).to(device)
+    w = torch.from_numpy((r.standard_normal((U, di, do)) * 0.1).astype(np.float32)).to(device)
+    b = torch.from_numpy((r.standard_normal((U, do)) * 0.1).astype(np.float32)).to(device)
+    slot_u = r.integers(0, U, rb)
+    return h, mask, w, b, slot_u
+
+
+def check_mean_linear(shape, seed, device) -> float:
+    from repro_torch.kernels.stacked_relation_agg import (
+        stacked_mean_linear, stacked_mean_linear_ref, stage_slot_u)
+    import torch
+
+    h, mask, w, b, slot_u = mean_linear_inputs(shape, seed, device)
+    got = stacked_mean_linear(h, mask, w, b, slot_u)
+    staged = stacked_mean_linear(h, mask, w, b, stage_slot_u(slot_u, w.shape[0], device))
+    ref = stacked_mean_linear_ref(h, mask, w, b, slot_u)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"stacked_mean_linear {shape}: non-finite output")
+    check(bool(torch.equal(got, staged)),
+          f"stacked_mean_linear {shape}: staged slot_u gives another answer")
+    err = (got - ref).abs()
+    lim = TOL["atol"] + TOL["rtol"] * ref.abs()
+    check(bool((err <= lim).all()),
+          f"stacked_mean_linear {shape}: max abs err {float(err.max()):.3g} over tolerance")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_gather(shape, seed, device, idx_dtype="int64") -> float:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
+
+    rows, d, n = shape
+    r = np.random.default_rng(seed)
+    table = torch.from_numpy(r.standard_normal((rows, d)).astype(np.float32)).to(device)
+    idx = r.integers(0, rows, n).astype(idx_dtype)
+    got = gather_rows(table, idx)
+    ref = gather_rows_ref(table, torch.from_numpy(idx))
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, ref)), f"gather_rows {shape}: differs from table[idx]")
+    return 0.0
+
+
+def time_mean_linear(shape, device):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ops import resolve_blocks
+    from repro_torch.kernels.stacked_relation_agg import ops as sml
+
+    rb, n, f, di, do, U = shape
+    h_bytes = rb * n * f * di * 4
+    sets = [mean_linear_inputs(shape, 100 + i, device)
+            for i in range(copies_to_exceed_l2(h_bytes))]
+    bn, bo, bc = resolve_blocks(None, "stacked_mean_linear")
+    raw = []
+    for h, mask, w, b, slot_u in sets:
+        out = torch.empty((rb, n, do), dtype=torch.float32, device=device)
+        u_dev = torch.from_numpy(np.asarray(slot_u, np.int32)).to(device)
+        raw.append((h, mask.view(torch.uint8), w, b, u_dev, out, bn, bo, bc))
+    ms = time_ms(sml.launch_kernel, raw)
+    plain_ms = time_ms(sml.stacked_mean_linear_ref, sets)
+    nbytes = h_bytes + rb * n * f + U * di * do * 4 + U * do * 4 + rb * 4 + rb * n * do * 4
+    flops = 2 * rb * n * f * di + 2 * rb * n * di * do + rb * n * do
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bytes=nbytes, flops=flops)
+
+
+def time_gather(shape, device):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gather_rows import ops as gr
+
+    rows, d, n = shape
+    r = np.random.default_rng(7)
+    sets, raw, lib = [], [], []
+    for i in range(copies_to_exceed_l2(rows * d * 4)):
+        table = torch.from_numpy(r.standard_normal((rows, d)).astype(np.float32)).to(device)
+        idx = r.integers(0, rows, n).astype(np.int64)
+        idx_dev = torch.from_numpy(idx).to(device)
+        out = torch.empty((n, d), dtype=torch.float32, device=device)
+        sets.append((table, torch.from_numpy(idx)))
+        raw.append((table, idx_dev, out))
+        lib.append((table, 0, idx_dev))
+    ms = time_ms(gr.launch_kernel, raw)
+    plain_ms = time_ms(gr.gather_rows_ref, sets)
+    library_ms = time_ms(torch.index_select, lib)
+    nbytes = 2 * n * d * 4 + n * 8
+    bound_ms, bound_by = bound(nbytes, 0)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bytes=nbytes, flops=0)
+
+
+# --------------------------------------------------------------------------
+# the slice
+# --------------------------------------------------------------------------
+
+
+def session_config(scale: float):
+    from repro_torch.api import DataConfig, HetaConfig, ModelConfig
+
+    return HetaConfig(
+        data=DataConfig(dataset="ogbn-mag", scale=scale, fanouts=(4, 3)),
+        model=ModelConfig(),
+    )
+
+
+def build_session(scale: float, device, max_degree: int = 16):
+    from repro_torch.api import Heta
+    from repro_torch.serve import bounded_graph
+
+    sess = Heta(session_config(scale), device=device)
+    g = bounded_graph(sess.build_graph(), max_degree)
+    sess.build_graph(g)
+    sess.partition()
+    sess.profile_and_cache()
+    sess.compile()
+    return sess, g
+
+
+def drive_server(name, server, store, n_target, seed, requests=512):
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import run_clients
+
+    answers, wall = run_clients(server, n_target, requests, 8, 4, seed)
+    stats = server.stats()
+    check(len(answers) == requests, f"{name}: {len(answers)} answers for {requests} requests")
+    w = torch.from_numpy(store.head["w"]).double()
+    b = torch.from_numpy(store.head["b"]).double()
+    emb = store.embeddings[store.target_type]
+    for nids, res in answers:
+        check(np.array_equal(res.embeddings, emb[nids]),
+              f"{name}: answer rows differ from the store's")
+        plain = (torch.relu(torch.from_numpy(emb[nids]).double()) @ w + b).numpy()
+        check(res.scores is not None and res.scores.shape == plain.shape,
+              f"{name}: missing or misshapen scores")
+        check(bool(np.allclose(res.scores, plain, **TOL)),
+              f"{name}: scores differ from relu(e) @ w + b "
+              f"(max abs err {np.abs(res.scores - plain).max():.3g})")
+    check(stats.degraded == 0 and stats.retries == 0 and stats.breaker_trips == 0,
+          f"{name}: degraded={stats.degraded} retries={stats.retries} "
+          f"breaker_trips={stats.breaker_trips}; the device path failed")
+    log(f"  {name}: {stats.count} requests in {wall:.3f} s wall, "
+        f"{stats.flushes} flushes, p50={stats.p50_ms:.3f} ms p99={stats.p99_ms:.3f} ms "
+        f"qps={stats.qps:.1f}; hit rates "
+        + ", ".join(f"{t}={r:.4f}" for t, r in sorted(stats.hit_rates.items())))
+    return dict(count=stats.count, flushes=stats.flushes, wall_s=wall,
+                p50_ms=stats.p50_ms, p99_ms=stats.p99_ms, qps=stats.qps,
+                hit_rates=stats.hit_rates)
+
+
+def run_slice(scale: float, report: dict):
+    """Drive the slice once from reset launch counts; returns the shapes
+    each kernel was launched at (a Counter per kernel)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ops import KERNELS, reset_launch_counts
+    from repro_torch.serve.server import EmbeddingServer
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sess, g = build_session(scale, None)
+    check(sess.device.type == "cuda", f"session landed on {sess.device}")
+    log(f"  graph {g.name}: {g.total_nodes:,} nodes, {g.total_edges:,} edges, "
+        f"paper features {g.features['paper'].nbytes / 2**20:.1f} MiB")
+    t1 = time.perf_counter()
+    store = sess.infer_all()
+    torch.cuda.synchronize()
+    t_infer = time.perf_counter() - t1
+    n_emb = sum(a.shape[0] for a in store.embeddings.values())
+    for t, a in store.embeddings.items():
+        check(a.shape == (g.num_nodes[t], sess.hgnn_cfg.hidden),
+              f"store[{t}] has shape {a.shape}")
+        check(bool(np.isfinite(a).all()), f"store[{t}] holds non-finite values")
+    check(store.target_type in store.embeddings, "no target-type embeddings")
+    tm = store.timings
+    log(f"  infer_all: {n_emb:,} embeddings of {len(store.embeddings)} types in "
+        f"{t_infer:.3f} s ({t_infer / n_emb * 1e6:.3f} us/node); "
+        f"{int(tm['blocks'])} blocks: host gather {tm['host_gather_s']:.3f} s, "
+        f"h2d {tm['h2d_s']:.3f} s, compute {tm['compute_s']:.3f} s, "
+        f"d2h {tm['d2h_s']:.3f} s")
+    log("  stage seconds: " + ", ".join(
+        f"{k}={v:.3f}" for k, v in sess.stage_times.items()))
+
+    n_target = g.num_nodes[g.target_type]
+    full_mb = math.ceil(len(store.embeddings) * n_target * store.hidden * 4 / 2**20) + 1
+    with EmbeddingServer(store, cache_mb=full_mb, kernels=sess.config.kernels) as srv:
+        check(srv.cache.caches[store.target_type].ids.shape[0] == n_target,
+              "the all-hit server does not cache the whole target table")
+        all_hit = drive_server(f"server cache_mb={full_mb} (all hits)", srv, store,
+                               n_target, seed=1)
+    check(all_hit["hit_rates"][store.target_type] == 1.0, "all-hit server missed")
+    mixed = drive_server(f"server cache_mb={sess.config.serve.cache_mb} (mixed)",
+                         sess.serve(), store, n_target, seed=2)
+    sess.close_serving()
+    launches = {name: info.launches for name, info in KERNELS.items()}
+    shapes = {name: info.shapes.copy() for name, info in KERNELS.items()}
+    log(f"  kernel launches on the slice: {launches} ({time.perf_counter() - t0:.1f} s)")
+    for name, k in launches.items():
+        check(k > 0, f"kernel {name} was not launched on the slice")
+    report["slice"] = dict(
+        scale=scale, nodes=g.total_nodes, edges=g.total_edges, target_rows=n_target,
+        embeddings=n_emb, infer_all_s=t_infer, infer_us_per_node=t_infer / n_emb * 1e6,
+        timings=dict(tm), stage_times=dict(sess.stage_times),
+        server_all_hit=all_hit, server_mixed=mixed, launches=launches,
+        shapes={k: {str(s): c for s, c in v.items()} for k, v in shapes.items()})
+    return shapes
+
+
+def run_reference(scale: float) -> None:
+    import numpy as np
+
+    gpu, _ = build_session(scale, None, max_degree=8)
+    cpu, _ = build_session(scale, "cpu", max_degree=8)
+    a, b = gpu.infer_all(), cpu.infer_all()
+    check(set(a.embeddings) == set(b.embeddings), "types differ between GPU and CPU")
+    worst = 0.0
+    for t in a.embeddings:
+        check(bool(np.allclose(a.embeddings[t], b.embeddings[t], **TOL)),
+              f"GPU and CPU embeddings of {t} differ beyond tolerance")
+        worst = max(worst, float(np.abs(a.embeddings[t] - b.embeddings[t]).max()))
+    ids = np.arange(min(64, a.embeddings[a.target_type].shape[0]))
+    check(bool(np.allclose(a.scores(ids), b.scores(ids), **TOL)), "GPU and CPU scores differ")
+    log(f"  scale {scale}: {sum(x.shape[0] for x in a.embeddings.values()):,} embeddings, "
+        f"max abs diff GPU kernels vs CPU plain {worst:.3g}")
+
+
+# --------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=float, default=0.1,
+                    help="ogbn-mag scale of the slice (default 0.1; 1.0 = full size)")
+    ap.add_argument("--ref-scale", type=float, default=0.005,
+                    help="scale of the GPU-vs-CPU reference check (default 0.005)")
+    ap.add_argument("--out", default=None, help="also write the detailed results as JSON here")
+    args = ap.parse_args(argv)
+
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch is not next to this script; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on the GPU",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report: dict = {}
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import KERNELS
+
+    log("== 1 environment")
+    card = card_line()
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    log(f"  {card}")
+    report["card"] = card
+
+    log("== 2 build")
+    t0 = time.perf_counter()
+    secs = build.build()
+    wall = time.perf_counter() - t0
+    log(f"  built {sorted(secs)} in {wall:.2f} s wall ({secs})")
+    for name in build.SOURCES:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    report["build_s"] = wall
+
+    log("== 3 kernels vs plain (ragged shapes)")
+    errs = {"stacked_mean_linear": 0.0, "gather_rows": 0.0}
+    for i, shape in enumerate([(5, 17, 4, 37, 24, 3), (1, 1, 1, 1, 1, 1),
+                               (8, 130, 3, 129, 65, 8), (12, 64, 25, 128, 64, 6),
+                               (3, 200, 7, 789, 349, 2)]):
+        errs["stacked_mean_linear"] = max(errs["stacked_mean_linear"],
+                                          check_mean_linear(shape, i, "cuda"))
+    for i, (shape, dt) in enumerate([((50, 37, 9), "int32"), ((5, 1, 3), "int64"),
+                                     ((1000, 64, 256), "int64")]):
+        check_gather(shape, i, "cuda", dt)
+    log(f"  ok; max abs err {errs}")
+
+    log(f"== 4 the slice (ogbn-mag scale {args.scale})")
+    shapes = run_slice(args.scale, report)
+
+    log("== 5 kernels at the slice's shapes")
+    entries = []
+    timers = {"stacked_mean_linear": (time_mean_linear, check_mean_linear),
+              "gather_rows": (time_gather, check_gather)}
+    for name, info in KERNELS.items():
+        timer, checker = timers[name]
+        seen = shapes[name]
+        if name == "gather_rows":  # (n, d) -> (rows, d, n) over the target table
+            rows = report["slice"]["target_rows"]
+            cases = [((rows, d, n), c) for (n, d), c in seen.most_common(12)]
+        else:
+            cases = seen.most_common(12)
+        for i, (shape, _) in enumerate(cases):
+            errs[name] = max(errs[name], checker(shape, 1000 + i, "cuda"))
+        top, top_count = cases[0]
+        t = timer(top, "cuda")
+        log(f"  {name} at {top} ({top_count} of {report['slice']['launches'][name]} "
+            f"launches): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
+            f"bound {t['bound_ms']:.3g} ms ({t['bound_by']}), "
+            f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s; max abs err {errs[name]:.3g} "
+            f"over {len(cases)} shapes")
+        for shape, count in cases[1:]:
+            tt = timer(shape, "cuda")
+            log(f"    also {shape} x{count}: kernel {tt['ms']:.4f} ms, "
+                f"plain {tt['plain_ms']:.4f} ms, bound {tt['bound_ms']:.3g} ms")
+        entries.append({
+            "name": name, "route": info.route, "source": info.source,
+            "replaces": info.replaces, "launches": report["slice"]["launches"][name],
+            "max_abs_err": errs[name], "max_err": errs[name], "shape": list(top),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    report["kernels"] = entries
+
+    log(f"== 6 reference (scale {args.ref_scale}: GPU kernels vs CPU plain)")
+    run_reference(args.ref_scale)
+
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1, default=str))
+    log(card_line())
+    log(json.dumps({"kernels": report["kernels"]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

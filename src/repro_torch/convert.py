@@ -1,0 +1,47 @@
+"""Carry weights and feature tables over from the reference package.
+
+The port's initializer draws from ``torch.Generator``s, which cannot
+reproduce the reference's jax threefry draws, so parity runs hand the
+reference's parameters to the port instead.  Both functions take plain
+numpy (``np.asarray`` of each leaf on the reference side), so this module
+needs neither JAX nor the reference package:
+
+    stacks_np = {layer: {leaf: np.asarray(v) for leaf, v in entry.items()}
+                 for layer, entry in ref_sess.state["stacks"].items()}
+    port_sess.compile(state={"stacks": stacks_from_reference(stacks_np, "cpu")})
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["stacks_from_reference", "tables_from_reference"]
+
+
+def stacks_from_reference(stacks_np: Dict, device=None) -> Dict:
+    """``{f"layer{l}": {leaf: [P, U, ...]}, "head": {"w", "b"}}`` of numpy
+    arrays -> the same tree of float32 tensors on ``device`` (``None``: the
+    GPU)."""
+    if "head" not in stacks_np or not any(k.startswith("layer") for k in stacks_np):
+        raise ValueError(
+            f"expected layer stacks and a head, got keys {sorted(stacks_np)}")
+    device = resolve_device(device)
+    return {
+        layer: {
+            leaf: torch.tensor(np.asarray(v, np.float32), device=device)
+            for leaf, v in entry.items()
+        }
+        for layer, entry in stacks_np.items()
+    }
+
+
+def tables_from_reference(tables_np: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A reference feature-table snapshot -> the port's host tables
+    (contiguous float32 numpy, one per node type)."""
+    return {t: np.ascontiguousarray(np.asarray(a, np.float32))
+            for t, a in tables_np.items()}

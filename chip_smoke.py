@@ -12,28 +12,41 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
      process per source, all at once;
   3. kernels vs plain — each kernel's wrapper on the card at ragged shapes
-     against its plain PyTorch version (stacked_mean_linear atol/rtol 1e-5:
-     the kernel sums in its own order; gather_rows exact);
-  4. the slice — a port ``Heta`` session on the GPU at the default model's
-     full width (R-GCN, hidden 64, learnable_dim 64, 2 layers, fanouts 4,3)
-     on ogbn-mag capped at in-degree 16: build_graph -> partition ->
-     profile_and_cache -> compile -> infer_all, then two embedding servers
+     and the training path's shapes against its plain PyTorch version
+     (stacked_mean_linear and its backward stacked_mean_linear_dh atol/rtol
+     1e-5: the kernels sum in their own order; gather_rows exact);
+  4. training — a port ``Heta`` session on the GPU at the default model's
+     full width (R-GCN, hidden 64, learnable_dim 64, 2 layers, fanouts 4,3,
+     learnable tables through the default 4 MiB cache) on ogbn-mag capped
+     at in-degree 16, batch 1024: build_graph -> partition ->
+     profile_and_cache -> compile -> fit (20 steps, saving a checkpoint at
+     step 10) -> evaluate.  Launch counts are reset just before the fit and
+     read just after: all three kernels must have launched.  The losses
+     must be finite and fall;
+  5. resume — a fresh session restores the step-10 checkpoint and trains
+     to step 20; its losses must equal the uninterrupted run's bit for bit
+     (every reduction on the path runs in a fixed order);
+  6. serving — on the trained state: infer_all, then two embedding servers
      (one whose cache holds the whole target table, so every flush is an
      all-hit fetch through the gather kernel; one at the default 4 MiB, the
      mixed hit/miss path), each answering 512 requests of 4 ids from 8
      client threads.  Every answer is held against the store's rows and a
      plain relu(e) @ w + b; the servers must answer with no retry, no
-     breaker trip and no degraded answer.  Kernel launch counts are reset
-     just before and read just after, and every kernel must have launched;
-  5. kernel timing — each kernel at the shapes the slice launched it with:
-     error against the plain version, kernel time (CUDA events over raw
-     launches, inputs rotated through more than the 50 MB L2), the plain
-     version's time, the library call's time where one PyTorch call
-     computes the same function, and the least time the card could take
-     (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor cores);
-  6. reference — the same session at a small scale on the GPU (kernels)
-     and on the CPU (plain PyTorch), every type's embeddings within
-     atol/rtol 1e-5.
+     breaker trip and no degraded answer.  Launch counts are reset just
+     before and read just after;
+  7. kernels at the main paths' shapes — each kernel against its plain
+     version at every shape the training and the serving runs launched it
+     with (gather_rows at the rows of the table each fetch read); at the two
+     most launched shapes of each path, the error against the plain
+     version, kernel time (CUDA events over raw launches, inputs rotated
+     through more than the 50 MB L2), the plain version's time, the library
+     call's time where one PyTorch call computes the same function, and the
+     least time the card could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s
+     fp32 without tensor cores); plus the whole backward of the autograd
+     Function (dh + dw + db) at the leaf shape;
+  8. card vs CPU — the same training session at a small scale on the GPU
+     (kernels) and on the CPU (plain PyTorch): 3-step losses within 1e-5,
+     then every type's infer_all embeddings within atol/rtol 1e-5.
 
 The last three lines are the card's name and power limit, one JSON object
 describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -42,10 +55,12 @@ describing every kernel, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -220,31 +235,126 @@ def time_gather(shape, device):
                 library_ms=library_ms, bytes=nbytes, flops=0)
 
 
+def dh_inputs(shape, seed, device):
+    import numpy as np
+    import torch
+
+    rb, n, f, di, do, U = shape
+    r = np.random.default_rng(seed)
+    g = torch.from_numpy(r.standard_normal((rb, n, do)).astype(np.float32)).to(device)
+    mask = torch.from_numpy(r.random((rb, n, f)) > 0.3).to(device)
+    w = torch.from_numpy((r.standard_normal((U, di, do)) * 0.1).astype(np.float32)).to(device)
+    slot_u = r.integers(0, U, rb)
+    return g, mask, w, slot_u
+
+
+def check_dh(shape, seed, device) -> float:
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import (
+        stacked_mean_linear_dh, stacked_mean_linear_dh_ref, stage_slot_u)
+
+    g, mask, w, slot_u = dh_inputs(shape, seed, device)
+    got = stacked_mean_linear_dh(g, mask, w, slot_u)
+    staged = stacked_mean_linear_dh(g, mask, w, stage_slot_u(slot_u, w.shape[0], device))
+    ref = stacked_mean_linear_dh_ref(g, mask, w, slot_u)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"stacked_mean_linear_dh {shape}: non-finite output")
+    check(bool(torch.equal(got, staged)),
+          f"stacked_mean_linear_dh {shape}: staged slot_u gives another answer")
+    err = (got - ref).abs()
+    lim = TOL["atol"] + TOL["rtol"] * ref.abs()
+    check(bool((err <= lim).all()),
+          f"stacked_mean_linear_dh {shape}: max abs err {float(err.max()):.3g} over tolerance")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def time_dh(shape, device):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ops import resolve_blocks
+    from repro_torch.kernels.stacked_relation_agg import ops as sml
+
+    rb, n, f, di, do, U = shape
+    out_bytes = rb * n * f * di * 4
+    sets = [dh_inputs(shape, 200 + i, device) for i in range(copies_to_exceed_l2(out_bytes))]
+    bn, bo, bc = resolve_blocks(None, "stacked_mean_linear_dh")
+    raw, plain = [], []
+    for g, mask, w, slot_u in sets:
+        dh = torch.empty((rb, n, f, di), dtype=torch.float32, device=device)
+        u_dev = torch.from_numpy(np.asarray(slot_u, np.int32)).to(device)
+        raw.append((g, mask.view(torch.uint8), w, u_dev, dh, bn, bo, bc))
+        plain.append((g, mask, w, u_dev))
+    ms = time_ms(sml.launch_dh_kernel, raw)
+    plain_ms = time_ms(sml.stacked_mean_linear_dh_ref, plain)
+    nbytes = out_bytes + rb * n * do * 4 + rb * n * f + U * di * do * 4 + rb * 4
+    flops = 2 * rb * n * di * do + rb * n * di + rb * n * f * di
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bytes=nbytes, flops=flops)
+
+
+def time_backward(shape, device):
+    """ms of the autograd Function's whole backward (dh kernel + stack-form
+    dw/db) at one shape, graph kept and replayed."""
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import stacked_mean_linear
+
+    h, mask, w, b, slot_u = mean_linear_inputs(shape, 300, device)
+    h, w, b = (t.requires_grad_(True) for t in (h, w, b))
+    out = stacked_mean_linear(h, mask, w, b, slot_u)
+    g = torch.randn_like(out)
+    back = lambda: torch.autograd.grad(out, (h, w, b), g, retain_graph=True)  # noqa: E731
+    return time_ms(back, [()], iters=20)
+
+
 # --------------------------------------------------------------------------
 # the slice
 # --------------------------------------------------------------------------
 
 
-def session_config(scale: float):
+def session_config(scale: float, batch_size: int = 1024):
     from repro_torch.api import DataConfig, HetaConfig, ModelConfig
 
     return HetaConfig(
-        data=DataConfig(dataset="ogbn-mag", scale=scale, fanouts=(4, 3)),
+        data=DataConfig(dataset="ogbn-mag", scale=scale, fanouts=(4, 3),
+                        batch_size=batch_size),
         model=ModelConfig(),
     )
 
 
-def build_session(scale: float, device, max_degree: int = 16):
+def build_session(scale: float, device, max_degree: int = 16, batch_size: int = 1024):
     from repro_torch.api import Heta
     from repro_torch.serve import bounded_graph
 
-    sess = Heta(session_config(scale), device=device)
+    sess = Heta(session_config(scale, batch_size), device=device)
     g = bounded_graph(sess.build_graph(), max_degree)
     sess.build_graph(g)
     sess.partition()
     sess.profile_and_cache()
     sess.compile()
     return sess, g
+
+
+def count_all_hit_fetches(cache) -> dict:
+    """Per node type, how many of the cache's fetches were all hits (the
+    fetches that go through the gather kernel).  Wraps ``cache.fetch`` on
+    this one instance."""
+    import collections
+
+    counts = collections.Counter()
+    fetch = cache.fetch
+
+    def counted(ntype, nids):
+        c = cache.caches.get(ntype)
+        if c is not None and len(nids) and bool((c.slot_of[nids] >= 0).all()):
+            counts[ntype] += 1
+        return fetch(ntype, nids)
+
+    cache.fetch = counted
+    return counts
 
 
 def drive_server(name, server, store, n_target, seed, requests=512):
@@ -280,25 +390,109 @@ def drive_server(name, server, store, n_target, seed, requests=512):
                 hit_rates=stats.hit_rates)
 
 
-def run_slice(scale: float, report: dict):
-    """Drive the slice once from reset launch counts; returns the shapes
-    each kernel was launched at (a Counter per kernel)."""
+def launch_counts():
+    from repro_torch.kernels.ops import KERNELS
+
+    return ({name: info.launches for name, info in KERNELS.items()},
+            {name: info.shapes.copy() for name, info in KERNELS.items()})
+
+
+def run_training(scale: float, report: dict, ckpt_dir: str):
+    """Phase 4: the training path, from reset launch counts.  Returns the
+    trained session, its graph and the shapes each kernel was launched at."""
+    import numpy as np
+
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    t0 = time.perf_counter()
+    sess, g = build_session(scale, None)
+    check(sess.device.type == "cuda", f"session landed on {sess.device}")
+    check(sess.plan.learn_feats, "learnable tables are not training")
+    log(f"  graph {g.name}: {g.total_nodes:,} nodes, {g.total_edges:,} edges, "
+        f"paper features {g.features['paper'].nbytes / 2**20:.1f} MiB; learnable "
+        f"{sorted(sess.engine.learnable_types)}; cache {sess.config.cache.cache_mb} MiB "
+        f"{dict(sess.engine.allocation.rows)}")
+    steps = sess.config.run.steps
+    all_hit = count_all_hit_fetches(sess.engine.cache)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    sess.fit(steps // 2)
+    sess.save(ckpt_dir)
+    res = sess.fit(steps - steps // 2)
+    launches, shapes = launch_counts()
+    t_fit = time.perf_counter() - t1
+    losses = res["losses"]
+    check(len(losses) == steps, f"{len(losses)} losses for {steps} steps")
+    check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
+    for name in ("stacked_mean_linear", "stacked_mean_linear_dh", "gather_rows"):
+        check(launches[name] > 0, f"kernel {name} was not launched by fit")
+    # the synthetic labels are uniform random, so the loss of a fresh batch
+    # stays near ln(classes) whatever the model learns; what training must
+    # lower is the loss of a batch it has trained on: step 0's, re-scored
+    first_after, _ = sess.executor.loss_and_metrics(sess, sess.plan, sess.state,
+                                                    sess._batch_for_step(0))
+    check(first_after < losses[0],
+          f"step 0's batch scores {first_after} after the fit, {losses[0]} before")
+    ev = sess.evaluate(num_batches=2)
+    check(bool(np.isfinite(ev["loss"])), f"evaluate gave {ev['loss']}")
+    n = len(sess.step_times)
+    log(f"  fit: {steps} steps in {t_fit:.3f} s wall; losses {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (ln {g.num_classes} = {math.log(g.num_classes):.6f}); step 0's "
+        f"batch re-scored after the fit {first_after:.6f}; evaluate loss {ev['loss']:.6f}")
+    log(f"  median of steps 2..{n - 1}: step {res['step_time_s'] * 1e3:.3f} ms "
+        f"(sparse update {res['update_time_s'] * 1e3:.3f} ms), host sample+stage "
+        f"{res['host_time_s'] * 1e3:.3f} ms; samples/s {res['samples_per_s']:.1f}")
+    log("  per step (ms) step/update/host: " + "; ".join(
+        f"{a * 1e3:.1f}/{b * 1e3:.1f}/{c * 1e3:.1f}" for a, b, c in
+        zip(sess.step_times, sess.update_times, sess.host_times)))
+    log("  hit rates " + ", ".join(f"{t}={r:.4f}" for t, r in sorted(res["hit_rates"].items()))
+        + f"; engine steps {sess.engine.steps}")
+    log(f"  kernel launches by fit: {launches}; all-hit fetches (gather_rows) by type: "
+        f"{dict(all_hit)}")
+    log(f"  stage seconds: " + ", ".join(f"{k}={v:.3f}" for k, v in sess.stage_times.items())
+        + f" ({time.perf_counter() - t0:.1f} s phase)")
+    report["training"] = dict(
+        scale=scale, nodes=g.total_nodes, edges=g.total_edges, steps=steps,
+        batch_size=sess.config.data.batch_size, losses=losses, eval_loss=ev["loss"],
+        first_batch_after=first_after,
+        fit_wall_s=t_fit, step_time_s=res["step_time_s"], host_time_s=res["host_time_s"],
+        update_time_s=res["update_time_s"], step_times=list(sess.step_times),
+        host_times=list(sess.host_times), update_times=list(sess.update_times),
+        hit_rates=res["hit_rates"], engine_steps=dict(sess.engine.steps),
+        all_hit_fetches=dict(all_hit), launches=launches,
+        shapes={k: {str(x): c for x, c in v.items()} for k, v in shapes.items()},
+        stage_times=dict(sess.stage_times))
+    return sess, g, shapes
+
+
+def run_resume(scale: float, report: dict, ckpt_dir: str, losses) -> None:
+    """Phase 5: a fresh session restores the mid-run checkpoint and trains
+    to the end; its losses must be the uninterrupted run's, bit for bit."""
+    sess, _ = build_session(scale, None)
+    step = sess.restore(ckpt_dir)
+    sess.fit(len(losses) - step)
+    tail, want = sess.losses, list(losses[step:])
+    diff = max(abs(a - b) for a, b in zip(tail, want))
+    log(f"  restored step {step}, trained to {step + len(tail)}: max |loss diff| "
+        f"{diff:.3g} against the uninterrupted run")
+    check(tail == want, f"resumed losses {tail} differ from {want}")
+    report["resume"] = dict(step=step, losses=tail, max_diff=diff)
+
+
+def run_serving(sess, g, report: dict):
+    """Phase 6: infer_all and two servers on the trained state, from reset
+    launch counts.  Returns the shapes each kernel was launched at."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.ops import KERNELS, reset_launch_counts
+    from repro_torch.kernels.ops import reset_launch_counts
     from repro_torch.serve.server import EmbeddingServer
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    sess, g = build_session(scale, None)
-    check(sess.device.type == "cuda", f"session landed on {sess.device}")
-    log(f"  graph {g.name}: {g.total_nodes:,} nodes, {g.total_edges:,} edges, "
-        f"paper features {g.features['paper'].nbytes / 2**20:.1f} MiB")
-    t1 = time.perf_counter()
     store = sess.infer_all()
     torch.cuda.synchronize()
-    t_infer = time.perf_counter() - t1
+    t_infer = time.perf_counter() - t0
     n_emb = sum(a.shape[0] for a in store.embeddings.values())
     for t, a in store.embeddings.items():
         check(a.shape == (g.num_nodes[t], sess.hgnn_cfg.hidden),
@@ -311,8 +505,8 @@ def run_slice(scale: float, report: dict):
         f"{int(tm['blocks'])} blocks: host gather {tm['host_gather_s']:.3f} s, "
         f"h2d {tm['h2d_s']:.3f} s, compute {tm['compute_s']:.3f} s, "
         f"d2h {tm['d2h_s']:.3f} s")
-    log("  stage seconds: " + ", ".join(
-        f"{k}={v:.3f}" for k, v in sess.stage_times.items()))
+    full = sess.evaluate(num_batches=2, use_full_graph=True)
+    check(bool(np.isfinite(full["loss"])), f"full-graph evaluate gave {full['loss']}")
 
     n_target = g.num_nodes[g.target_type]
     full_mb = math.ceil(len(store.embeddings) * n_target * store.hidden * 4 / 2**20) + 1
@@ -325,25 +519,30 @@ def run_slice(scale: float, report: dict):
     mixed = drive_server(f"server cache_mb={sess.config.serve.cache_mb} (mixed)",
                          sess.serve(), store, n_target, seed=2)
     sess.close_serving()
-    launches = {name: info.launches for name, info in KERNELS.items()}
-    shapes = {name: info.shapes.copy() for name, info in KERNELS.items()}
-    log(f"  kernel launches on the slice: {launches} ({time.perf_counter() - t0:.1f} s)")
-    for name, k in launches.items():
-        check(k > 0, f"kernel {name} was not launched on the slice")
-    report["slice"] = dict(
-        scale=scale, nodes=g.total_nodes, edges=g.total_edges, target_rows=n_target,
-        embeddings=n_emb, infer_all_s=t_infer, infer_us_per_node=t_infer / n_emb * 1e6,
-        timings=dict(tm), stage_times=dict(sess.stage_times),
-        server_all_hit=all_hit, server_mixed=mixed, launches=launches,
-        shapes={k: {str(s): c for s, c in v.items()} for k, v in shapes.items()})
+    launches, shapes = launch_counts()
+    log(f"  kernel launches by serving: {launches} ({time.perf_counter() - t0:.1f} s)")
+    for name in ("stacked_mean_linear", "gather_rows"):
+        check(launches[name] > 0, f"kernel {name} was not launched by serving")
+    report["serving"] = dict(
+        target_rows=n_target, embeddings=n_emb, infer_all_s=t_infer,
+        infer_us_per_node=t_infer / n_emb * 1e6, timings=dict(tm),
+        full_graph_eval_loss=full["loss"], server_all_hit=all_hit, server_mixed=mixed,
+        launches=launches,
+        shapes={k: {str(x): c for x, c in v.items()} for k, v in shapes.items()})
     return shapes
 
 
-def run_reference(scale: float) -> None:
+def run_reference(scale: float, steps: int = 3) -> None:
+    """Phase 8: the port on the card against the port on the CPU."""
     import numpy as np
 
-    gpu, _ = build_session(scale, None, max_degree=8)
-    cpu, _ = build_session(scale, "cpu", max_degree=8)
+    gpu, _ = build_session(scale, None, max_degree=8, batch_size=32)
+    cpu, _ = build_session(scale, "cpu", max_degree=8, batch_size=32)
+    lg, lc = gpu.fit(steps)["losses"], cpu.fit(steps)["losses"]
+    diff = max(abs(a - b) for a, b in zip(lg, lc))
+    log(f"  scale {scale}, batch 32: {steps}-step losses GPU {lg} CPU {lc}, "
+        f"max diff {diff:.3g}")
+    check(diff <= TOL["atol"], f"GPU and CPU losses differ by {diff:.3g}")
     a, b = gpu.infer_all(), cpu.infer_all()
     check(set(a.embeddings) == set(b.embeddings), "types differ between GPU and CPU")
     worst = 0.0
@@ -353,8 +552,58 @@ def run_reference(scale: float) -> None:
         worst = max(worst, float(np.abs(a.embeddings[t] - b.embeddings[t]).max()))
     ids = np.arange(min(64, a.embeddings[a.target_type].shape[0]))
     check(bool(np.allclose(a.scores(ids), b.scores(ids), **TOL)), "GPU and CPU scores differ")
-    log(f"  scale {scale}: {sum(x.shape[0] for x in a.embeddings.values()):,} embeddings, "
-        f"max abs diff GPU kernels vs CPU plain {worst:.3g}")
+    log(f"  trained infer_all: {sum(x.shape[0] for x in a.embeddings.values()):,} "
+        f"embeddings, max abs diff GPU kernels vs CPU plain {worst:.3g}")
+
+
+def kernel_table(report: dict, train_shapes, serve_shapes, errs: dict, device="cuda"):
+    """Phase 7: every kernel against its plain version at every shape either
+    path launched it with, and timed at each path's two most launched
+    shapes.  Returns the entries of the ``kernels`` line."""
+    from repro_torch.kernels.ops import KERNELS
+
+    entries = []
+    timers = {"stacked_mean_linear": (time_mean_linear, check_mean_linear),
+              "stacked_mean_linear_dh": (time_dh, check_dh),
+              "gather_rows": (time_gather, check_gather)}
+    paths = {"training": train_shapes, "serving": serve_shapes}
+    for name, info in KERNELS.items():
+        timer, checker = timers[name]
+        # every shape either path launched (gather_rows: (rows, d, n) of the
+        # table each fetch read) against the plain version
+        union = collections.Counter()
+        for shapes in paths.values():
+            union.update(shapes[name])
+        for i, shape in enumerate(sorted(union)):
+            errs[name] = max(errs[name], checker(shape, 1000 + i, device))
+        log(f"  {name}: max abs err {errs[name]:.3g} over {len(union)} shapes")
+        timed = {}
+        for path, shapes in paths.items():
+            # the two most launched shapes of the path; among those, the most work first
+            cases = sorted(shapes[name].items(), key=lambda sc: (-sc[1], -math.prod(sc[0])))[:2]
+            timed[path] = []
+            for shape, count in cases:
+                t = timer(shape, device)
+                timed[path].append(dict(shape=list(shape), count=count, **t))
+                log(f"    {path} {shape} ({count} of {report[path]['launches'][name]} launches): "
+                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                    f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}"
+                    f" ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']}), "
+                    f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s")
+        top = timed["training"][0]
+        serve = timed["serving"][0] if timed["serving"] else None
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        entries.append({
+            "name": name, "route": info.route, "source": info.source,
+            "replaces": info.replaces, "launches": report["training"]["launches"][name],
+            "max_abs_err": errs[name], "max_err": errs[name], "shapes_checked": len(union),
+            "shape": top["shape"], **{k: top[k] for k in keys},
+            "serving": None if serve is None else {
+                "launches": report["serving"]["launches"][name], "shape": serve["shape"],
+                **{k: serve[k] for k in keys}},
+            "timed": timed,
+        })
+    return entries
 
 
 # --------------------------------------------------------------------------
@@ -387,11 +636,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     report: dict = {}
     from repro_torch.kernels import build
-    from repro_torch.kernels.ops import KERNELS
 
     log("== 1 environment")
     card = card_line()
-    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+    import numpy
+
+    log(f"  python {sys.version.split()[0]}, numpy {numpy.__version__}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     log(f"  {card}")
@@ -408,65 +658,48 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
     report["build_s"] = wall
 
-    log("== 3 kernels vs plain (ragged shapes)")
-    errs = {"stacked_mean_linear": 0.0, "gather_rows": 0.0}
-    for i, shape in enumerate([(5, 17, 4, 37, 24, 3), (1, 1, 1, 1, 1, 1),
-                               (8, 130, 3, 129, 65, 8), (12, 64, 25, 128, 64, 6),
-                               (3, 200, 7, 789, 349, 2)]):
+    log("== 3 kernels vs plain (ragged shapes and the training path's)")
+    ragged = [(5, 17, 4, 37, 24, 3), (1, 1, 1, 1, 1, 1), (8, 130, 3, 129, 65, 8),
+              (12, 64, 25, 128, 64, 6), (3, 200, 7, 789, 349, 2)]
+    errs = {"stacked_mean_linear": 0.0, "stacked_mean_linear_dh": 0.0, "gather_rows": 0.0}
+    for i, shape in enumerate(ragged):
         errs["stacked_mean_linear"] = max(errs["stacked_mean_linear"],
                                           check_mean_linear(shape, i, "cuda"))
+    # + the two levels of the training path at batch 1024 (leaf: d_in = d_pad)
+    for i, shape in enumerate(ragged + [(3, 1024, 4, 64, 64, 3), (6, 4096, 3, 128, 64, 6)]):
+        errs["stacked_mean_linear_dh"] = max(errs["stacked_mean_linear_dh"],
+                                             check_dh(shape, i, "cuda"))
     for i, (shape, dt) in enumerate([((50, 37, 9), "int32"), ((5, 1, 3), "int64"),
                                      ((1000, 64, 256), "int64")]):
         check_gather(shape, i, "cuda", dt)
     log(f"  ok; max abs err {errs}")
 
-    log(f"== 4 the slice (ogbn-mag scale {args.scale})")
-    shapes = run_slice(args.scale, report)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        log(f"== 4 training (ogbn-mag scale {args.scale}, batch 1024)")
+        sess, g, train_shapes = run_training(args.scale, report, ckpt_dir)
+        log("== 5 resume from the step-10 checkpoint")
+        run_resume(args.scale, report, ckpt_dir, report["training"]["losses"])
+    log("== 6 serving the trained state")
+    serve_shapes = run_serving(sess, g, report)
+    del sess
 
-    log("== 5 kernels at the slice's shapes")
-    entries = []
-    timers = {"stacked_mean_linear": (time_mean_linear, check_mean_linear),
-              "gather_rows": (time_gather, check_gather)}
-    for name, info in KERNELS.items():
-        timer, checker = timers[name]
-        seen = shapes[name]
-        if name == "gather_rows":  # (n, d) -> (rows, d, n) over the target table
-            rows = report["slice"]["target_rows"]
-            cases = [((rows, d, n), c) for (n, d), c in seen.most_common(12)]
-        else:
-            cases = seen.most_common(12)
-        for i, (shape, _) in enumerate(cases):
-            errs[name] = max(errs[name], checker(shape, 1000 + i, "cuda"))
-        top, top_count = cases[0]
-        t = timer(top, "cuda")
-        log(f"  {name} at {top} ({top_count} of {report['slice']['launches'][name]} "
-            f"launches): "
-            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
-            f"bound {t['bound_ms']:.3g} ms ({t['bound_by']}), "
-            f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s; max abs err {errs[name]:.3g} "
-            f"over {len(cases)} shapes")
-        for shape, count in cases[1:]:
-            tt = timer(shape, "cuda")
-            log(f"    also {shape} x{count}: kernel {tt['ms']:.4f} ms, "
-                f"plain {tt['plain_ms']:.4f} ms, bound {tt['bound_ms']:.3g} ms")
-        entries.append({
-            "name": name, "route": info.route, "source": info.source,
-            "replaces": info.replaces, "launches": report["slice"]["launches"][name],
-            "max_abs_err": errs[name], "max_err": errs[name], "shape": list(top),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        })
-    report["kernels"] = entries
+    log("== 7 kernels at the shapes the training and serving paths launched them with")
+    report["kernels"] = kernel_table(report, train_shapes, serve_shapes, errs)
+    leaf = max(train_shapes["stacked_mean_linear_dh"], key=lambda x: x[0] * x[1] * x[2] * x[3])
+    back_ms = time_backward(leaf, "cuda")
+    log(f"  autograd backward of stacked_mean_linear (dh + dw + db) at {leaf}: "
+        f"{back_ms:.4f} ms")
+    report["backward_ms"] = dict(shape=list(leaf), ms=back_ms)
 
-    log(f"== 6 reference (scale {args.ref_scale}: GPU kernels vs CPU plain)")
+    log(f"== 8 card vs CPU (scale {args.ref_scale}, batch 32)")
     run_reference(args.ref_scale)
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1, default=str))
     log(card_line())
-    log(json.dumps({"kernels": report["kernels"]}))
+    log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "timed"}
+                                for e in report["kernels"]]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

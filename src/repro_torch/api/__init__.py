@@ -7,6 +7,7 @@ One config object, one session, explicit stages::
     sess = Heta(HetaConfig())          # on the GPU (device="cpu" to opt out)
     sess.build_graph(); sess.partition(); sess.profile_and_cache()
     sess.compile()
+    sess.fit()                         # train (run.steps steps)
     store = sess.infer_all()           # every node's embedding
     server = sess.serve()              # micro-batching lookups
     print(server.query([0, 1, 2]).scores)

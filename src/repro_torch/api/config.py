@@ -2,8 +2,8 @@
 
 The port keeps the reference package's configuration field for field, so a
 config dict round-trips between the two packages unchanged; sections whose
-machinery belongs to a later slice of the port (pipeline workers,
-checkpointing, scale-out) are accepted and validated here, and the stage
+machinery belongs to a later slice of the port (the async pipeline and
+its workers, scale-out) are accepted and validated here, and the stage
 that would use them raises a named error.
 
 One config object describes a complete Heta run.  It composes eleven
@@ -380,7 +380,7 @@ class ServeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
-    """Periodic session checkpointing (``repro.checkpoint``, DESIGN.md §12).
+    """Periodic session checkpointing (``repro_torch.checkpoint``, DESIGN.md §12).
 
     With ``every_steps > 0`` the fit loop calls ``Heta.save(dir)`` after
     every N consumed steps; checkpoints are written atomically (tmp +

@@ -2,26 +2,41 @@
 
 Executor choice is a config string (``RunConfig.executor``).  Protocol (all
 methods take the owning :class:`repro_torch.api.Heta` session, which
-exposes graph / spec / assignment / engine / hgnn_cfg / device):
+exposes graph / spec / assignment / engine / hgnn_cfg / adam_cfg / device):
 
   ``build_plan(sess) -> plan``            static artifacts
-  ``init_state(sess, plan) -> state``     parameters (+ optimizer state)
+  ``init_state(sess, plan) -> state``     parameters + optimizer state
+  ``stage(sess, plan, batch) -> arrays``
+      host-side staging: a :class:`SampledBatch` -> the device arrays the
+      step consumes (table snapshot, stack, copy to the device)
+  ``step_staged(sess, plan, state, batch, arrays) -> (state, loss, step_time_s)``
+      the device step on staged arrays; ``step_time_s`` times the compute
+      + sparse-update region only and ends after the loss reaches the host.
+      The sparse-update share is recorded in ``plan.last_update_s``.
+  ``step(sess, plan, state, batch)``      the serial composition of the two
+  ``stage_reads_tables(sess, plan) -> bool``
+      whether ``stage`` reads learnable tables that train
+  ``loss_and_metrics(sess, plan, state, batch) -> (loss, metrics)``  eval only
 
-The port so far registers ``raf_spmd`` — the production SPMD executor,
-relation branches stacked per model shard — with its plan and initial
-parameter stacks, which is what layer-wise inference and serving need.
-Its training step, the ``vanilla`` and ``raf`` executors and the staged
-pipeline protocol join with the training slice.
+The port registers ``raf_spmd`` — the production SPMD executor, relation
+branches stacked per model shard, learnable features updated sparsely
+through the §6 cache.  The ``vanilla`` and ``raf`` executors (the dict-form
+``hgnn_loss`` and the ``relation_agg`` kernel) are a later slice, so
+``get()`` names what is available when asked for them.
 
 Register your own with ``@executors.register("name")``.
 """
 
 from __future__ import annotations
 
+import time
 from types import SimpleNamespace
 from typing import Dict, Tuple, Type
 
-__all__ = ["Executor", "register", "get", "available"]
+import numpy as np
+import torch
+
+__all__ = ["Executor", "register", "get", "available", "apply_feature_grads"]
 
 _REGISTRY: Dict[str, Type["Executor"]] = {}
 
@@ -61,6 +76,28 @@ class Executor:
     def init_state(self, sess, plan):
         raise NotImplementedError
 
+    def stage(self, sess, plan, batch):
+        raise NotImplementedError
+
+    def step_staged(self, sess, plan, state, batch, arrays):
+        raise NotImplementedError
+
+    def step(self, sess, plan, state, batch):
+        """Serial stage + device step."""
+        return self.step_staged(sess, plan, state, batch,
+                                self.stage(sess, plan, batch))
+
+    def stage_reads_tables(self, sess, plan) -> bool:
+        return False
+
+    def loss_and_metrics(self, sess, plan, state, batch):
+        raise NotImplementedError
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
 
 @register("raf_spmd")
 class RafSpmdExecutor(Executor):
@@ -77,15 +114,120 @@ class RafSpmdExecutor(Executor):
         plan = raf_spmd.build_plan(sess.spec, assignment, sess.hgnn_cfg, sess.feat_dims)
         learn = (bool(sess.engine.learnable_types)
                  and sess.config.model.train_learnable)
-        return SimpleNamespace(plan=plan, learn_feats=learn)
+        return SimpleNamespace(
+            plan=plan,
+            learn_feats=learn,
+            local_combine=sess.config.partition.placement == "meta",
+            last_update_s=0.0,
+        )
 
     def init_state(self, sess, plan):
         """Initial parameter stacks on the session's device, from the port's
-        name-seeded init (``repro_torch.core.hgnn.init_hgnn_params``)."""
+        name-seeded init (``repro_torch.core.hgnn.init_hgnn_params``), and
+        zero Adam state."""
         from repro_torch.core import raf_spmd
         from repro_torch.core.hgnn import init_hgnn_params
+        from repro_torch.optim.adam import adam_init
 
         params = init_hgnn_params(sess.config.run.seed, sess.hgnn_cfg, sess.spec,
                                   sess.feat_dims)
-        return {"stacks": raf_spmd.stack_params_from_dict(plan.plan, params,
-                                                          device=sess.device)}
+        stacks = raf_spmd.stack_params_from_dict(plan.plan, params, device=sess.device)
+        return {"stacks": stacks, "opt": adam_init(stacks)}
+
+    def stage(self, sess, plan, batch):
+        """Snapshot the tables, stack the batch branch-major on the host and
+        copy it to the device.  With frozen features the tables never
+        change, so re-staging the same batch object returns the last
+        arrays."""
+        from repro_torch.core import raf_spmd
+
+        if not plan.learn_feats:
+            cached = getattr(plan, "_stage_cache", None)
+            if cached is not None and cached[0] is batch:
+                return cached[1]
+        tables = sess.engine.tables_snapshot()
+        arrays = raf_spmd.stack_batch(plan.plan, batch, tables, sess.device)
+        if not plan.learn_feats:
+            plan._stage_cache = (batch, arrays)
+        return arrays
+
+    def stage_reads_tables(self, sess, plan) -> bool:
+        return bool(plan.learn_feats)
+
+    def step_staged(self, sess, plan, state, batch, arrays):
+        from repro_torch.core import raf_spmd
+
+        t0 = time.perf_counter()
+        stacks, opt, loss, gf = raf_spmd.train_step(
+            plan.plan, sess.adam_cfg, state["stacks"], state["opt"], arrays,
+            local_combine=plan.local_combine, kernels=sess.config.kernels,
+            learn_feats=plan.learn_feats,
+        )
+        if plan.learn_feats:
+            _sync(sess.device)
+            t1 = time.perf_counter()
+            apply_feature_grads(sess.engine, plan.plan, batch, gf)
+            _sync(sess.device)
+            plan.last_update_s = time.perf_counter() - t1
+        else:
+            plan.last_update_s = 0.0
+        loss = float(loss)  # waits for the device
+        return {"stacks": stacks, "opt": opt}, loss, time.perf_counter() - t0
+
+    def loss_and_metrics(self, sess, plan, state, batch):
+        from repro_torch.core import raf_spmd
+
+        with torch.no_grad():
+            loss = float(raf_spmd.loss_fn(
+                plan.plan, state["stacks"], self.stage(sess, plan, batch),
+                local_combine=plan.local_combine, kernels=sess.config.kernels))
+        return loss, {"loss": loss, "hit_rates": sess.engine.cache.hit_rates()}
+
+
+def apply_feature_grads(engine, plan, batch, gf: Dict) -> None:
+    """Route gradients of the gathered feature arrays back to the learnable
+    tables (paper Fig. 3 step 5, via the §6 cache).
+
+    The order is the reference's: per level ``d = 1..k``, ``hfeat{d}`` then
+    ``qfeat{d}``.  Every key in ``gf`` counts, including the zero gradients
+    of arrays the model does not read (R-GCN's ``qfeat``): each still makes
+    a sparse Adam step, which moves rows once their first moment is nonzero
+    and advances the table's step counter.  Each gradient is copied to the
+    host, where duplicates are summed, as the reference does."""
+    learnable = set(engine.learnable_types)
+    spec = plan.spec
+    k = spec.num_layers
+    for d in range(1, k + 1):
+        lp = plan.levels[d - 1]
+        for key, types, get_ids in (
+            (f"hfeat{d}", plan.src_types[d - 1], lambda b: batch.levels[d - 1].nids[b]),
+            (
+                f"qfeat{d}",
+                plan.dst_types[d - 1],
+                lambda b: (
+                    batch.seeds if d == 1
+                    else batch.levels[d - 2].nids[spec.levels[d - 1][b].parent]
+                ),
+            ),
+        ):
+            if key not in gf:
+                continue
+            grad = gf[key].cpu().numpy()  # [P*rb, N, d_pad]
+            grad = grad.reshape(plan.num_shards, lp.rb, *grad.shape[1:])
+            per_type: Dict[str, list] = {}
+            for p in range(plan.num_shards):
+                for s in range(lp.rb):
+                    b = lp.slot_branch[p, s]
+                    if b < 0:
+                        continue
+                    t = types[b]
+                    if t not in learnable:
+                        continue
+                    dim = engine.learnable_dim
+                    per_type.setdefault(t, []).append(
+                        (get_ids(b), grad[p, s][:, :dim])
+                    )
+            for t, chunks in per_type.items():
+                ids = np.concatenate([c[0] for c in chunks])
+                gr = np.concatenate([c[1] for c in chunks])
+                engine.apply_row_grads(t, ids, gr)

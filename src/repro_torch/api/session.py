@@ -4,31 +4,40 @@
     g      = sess.build_graph()        # HetG (synthetic dataset family)
     part   = sess.partition()          # §5 meta-partitioning -> PartitionReport
     cache  = sess.profile_and_cache()  # §6 hotness/penalty profiling -> CacheReport
-    sess.compile()                     # §4 executor plan + parameter stacks
+    sess.compile()                     # §4 executor plan + parameters + Adam state
+    result = sess.fit()                # train; same keys as the reference
+    sess.evaluate()                    # held-out loss
+    sess.save(dir); sess.restore(dir)  # npz + manifest checkpoints
     store  = sess.infer_all()          # layer-wise full-graph inference (§10)
     server = sess.serve()              # micro-batching embedding server
     sess.close_serving()
 
 Calling a stage out of order raises :class:`HetaStageError` with the missing
-prerequisite.  ``compile(state=...)`` takes parameter stacks from elsewhere
+prerequisite; ``run()`` executes whatever stages remain and then ``fit()``.
+``compile(state=...)`` takes parameter stacks from elsewhere
 (``repro_torch.convert.stacks_from_reference``) instead of the port's own
-init.  Training (``fit``/``evaluate``), checkpointing, the sampler pool and
-the scale-out tier join with later slices of the port; the configuration
-sections that drive them are accepted and validated, and the stage that
-would need them raises a named error.
+init.  ``fit`` and ``evaluate`` run the serial loop: the async pipeline
+(``pipeline.enabled``), its sampler worker pool and the data-parallel
+scale-out tier (``scale.enabled``) are later slices of the port, and asking
+for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import re
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.api import executors as _executors
 from repro_torch.api.config import HetaConfig
 from repro_torch.device import resolve_device
+from repro_torch.optim.adam import AdamConfig, adam_init, tree_map
 
 __all__ = ["Heta", "HetaStageError", "PartitionReport", "CacheReport"]
 
@@ -74,6 +83,9 @@ class Heta:
             config = config.updated(**sections)
         self.config = config
         self.device = resolve_device(device)
+        # one optimizer config for the dense stacks and the sparse rows, at
+        # the run's learning rate (the engine has no default of its own)
+        self.adam_cfg = AdamConfig(lr=config.run.lr)
         self.stage_times: Dict[str, float] = {}
         # stage products
         self.graph = None
@@ -87,6 +99,15 @@ class Heta:
         self.executor = None
         self.plan = None
         self.state = None
+        self.sampler = None
+        self.losses: List[float] = []
+        self.step_times: List[float] = []  # compute + sparse update, per step
+        self.host_times: List[float] = []  # sample + stage, per step
+        self.update_times: List[float] = []  # sparse update share of step_times
+        self._fit_wall_s = 0.0
+        self._fit_serial_s = 0.0
+        self._fit_steps = 0
+        self._steps_done = 0
         # online inference tier (repro_torch.serve)
         self.embedding_store = None
         self._server = None
@@ -165,8 +186,8 @@ class Heta:
         cfg = self.config
         if cfg.pipeline.enabled and cfg.pipeline.num_workers > 0:
             raise NotImplementedError(
-                "pipeline.num_workers > 0: the sampler worker pool arrives "
-                "with the port's training slice; use num_workers=0")
+                "pipeline.num_workers > 0: the sampler worker pool is a later "
+                "slice of the port (with the async pipeline); use num_workers=0")
         hotness = presample_hotness(
             self.graph, self.spec, cfg.data.batch_size,
             epochs=cfg.cache.presample_epochs,
@@ -178,7 +199,7 @@ class Heta:
         )
         self.engine = EmbedEngine(
             self.graph, cfg.model.learnable_dim, hotness, penalties,
-            cache_bytes=cfg.cache.cache_bytes,
+            cache_bytes=cfg.cache.cache_bytes, adam=self.adam_cfg,
             hotness_only=cfg.cache.hotness_only,
             num_shards=int(np.prod(cfg.run.mesh_shape)), seed=cfg.run.seed,
             kernels=cfg.kernels, device=self.device,
@@ -196,12 +217,15 @@ class Heta:
 
     def compile(self, executor: Optional[str] = None,
                 state: Optional[Dict] = None) -> "Heta":
-        """Build the executor plan and its initial state via the registry.
+        """Build the executor plan, its initial state and the training
+        sampler.
 
         ``state`` (``{"stacks": ...}``, e.g. from
         :func:`repro_torch.convert.stacks_from_reference`) replaces the
         port's own parameter init; its tensors are moved to the session's
-        device."""
+        device, and Adam state starts at zero."""
+        from repro_torch.graph.sampler import NeighborSampler
+
         self._require("engine", "profile_and_cache", "compile")
         t0 = time.perf_counter()
         name = executor or self.config.run.executor
@@ -210,14 +234,327 @@ class Heta:
         if state is None:
             self.state = self.executor.init_state(self, self.plan)
         else:
-            self.state = {
-                "stacks": {layer: {leaf: v.to(self.device) for leaf, v in entry.items()}
-                           for layer, entry in state["stacks"].items()},
-            }
+            stacks = tree_map(lambda v: v.to(self.device), state["stacks"])
+            self.state = {"stacks": stacks, "opt": adam_init(stacks)}
+        self.sampler = NeighborSampler(
+            self.graph, self.spec, self.config.data.batch_size,
+            seed=self.config.run.seed + 1,
+        )
         self.stage_times["compile"] = time.perf_counter() - t0
         return self
 
-    # -- stage 5: the online inference tier (repro_torch.serve) ----------------
+    # -- stage 5: training / evaluation ---------------------------------------
+
+    def _serial_only(self, what: str) -> None:
+        cfg = self.config
+        if cfg.scale.enabled:
+            raise NotImplementedError(
+                f"{what} with scale.enabled: the data-parallel trainer "
+                "(data/dp_trainer.py on torch.distributed) is a later slice of "
+                "the port; use scale.num_trainers=1")
+        if cfg.pipeline.enabled:
+            raise NotImplementedError(
+                f"{what} with pipeline.enabled: the async host pipeline "
+                "(prefetch thread, sampler worker pool, batch arena) is a later "
+                "slice of the port; use pipeline.enabled=False")
+
+    def step(self, batch=None) -> float:
+        """One optimization step (samples the next batch when none given).
+
+        Recorded step times come from the executor's timed region — compute
+        + sparse update, host staging excluded; host sample + stage time is
+        recorded separately in ``host_times``."""
+        self._require("state", "compile", "step")
+        t0 = time.perf_counter()
+        if batch is None:
+            batch = self._next_batch()
+        arrays = self.executor.stage(self, self.plan, batch)
+        return self._consume(batch, arrays, time.perf_counter() - t0)
+
+    def _consume(self, batch, arrays, host_s: float) -> float:
+        """Run the device step on staged arrays and record the books."""
+        self.state, loss, dt = self.executor.step_staged(
+            self, self.plan, self.state, batch, arrays)
+        self.host_times.append(host_s)
+        self.step_times.append(dt)
+        self.update_times.append(float(getattr(self.plan, "last_update_s", 0.0)))
+        self.losses.append(loss)
+        self._steps_done += 1
+        self._maybe_rebalance()
+        self._maybe_checkpoint()
+        return loss
+
+    def _maybe_rebalance(self) -> None:
+        """Online §6 re-admission: every ``cache.readmit_every`` consumed
+        steps, re-score cache residency from the observed access trace
+        (``EmbedEngine.rebalance``)."""
+        every = self.config.cache.readmit_every
+        if every > 0 and self.engine is not None and self._steps_done % every == 0:
+            self.engine.rebalance()
+
+    def fit(self, steps: Optional[int] = None) -> Dict:
+        """Train for ``steps`` (default ``RunConfig.steps``) in the serial
+        loop; returns :meth:`results`."""
+        self._require("state", "compile", "fit")
+        steps = self.config.run.steps if steps is None else steps
+        if steps:
+            self._serial_only("fit")
+        log_every = self.config.run.log_every
+        t_wall = time.perf_counter()
+        n0 = len(self.step_times)
+        for _ in range(steps):
+            loss = self.step()
+            i = self._steps_done - 1
+            if log_every and i % log_every == 0:
+                print(f"step {i:4d} loss {loss:.4f} "
+                      f"({self.step_times[-1]*1e3:.1f} ms)")
+        self._fit_wall_s += time.perf_counter() - t_wall
+        self._fit_steps += len(self.step_times) - n0
+        self._fit_serial_s += sum(self.host_times[n0:]) + sum(self.step_times[n0:])
+        return self.results()
+
+    def evaluate(self, num_batches: int = 1, use_full_graph: bool = False) -> Dict:
+        """Mean held-out-batch loss via the executor's eval path (no update).
+
+        ``use_full_graph=True`` scores the *same* held-out batches against
+        the embeddings :meth:`infer_all` materialized instead of running the
+        executor's sampled forward."""
+        from repro_torch.graph.sampler import NeighborSampler
+
+        self._require("state", "compile", "evaluate")
+        self._serial_only("evaluate")
+        eval_seed = self.config.run.seed + 9999
+        sampler = NeighborSampler(
+            self.graph, self.spec, self.config.data.batch_size, seed=eval_seed,
+        )
+        n = min(num_batches, sampler.steps_per_epoch())
+        losses, metrics = [], {}
+        it = sampler.epoch(shuffle=True, seed=eval_seed)
+        if use_full_graph:
+            self._require("embedding_store", "infer_all",
+                          "evaluate(use_full_graph=True)")
+            for _ in range(n):
+                b = next(it)
+                logits = self.embedding_store.scores(b.seeds).astype(np.float64)
+                logits -= logits.max(axis=-1, keepdims=True)
+                logp = logits - np.log(np.exp(logits).sum(axis=-1, keepdims=True))
+                losses.append(float(-logp[np.arange(len(b.seeds)), b.labels].mean()))
+            return {"loss": float(np.mean(losses)),
+                    "num_batches": len(losses), "full_graph": True}
+        for _ in range(n):
+            loss, metrics = self.executor.loss_and_metrics(self, self.plan,
+                                                           self.state, next(it))
+            losses.append(loss)
+        return {"loss": float(np.mean(losses)), "num_batches": len(losses),
+                **{k: v for k, v in metrics.items() if k != "loss"}}
+
+    def run(self) -> Dict:
+        """Execute whatever stages remain, then ``fit()``."""
+        if self.graph is None:
+            self.build_graph()
+        if self.spec is None:
+            self.partition()
+        if self.engine is None:
+            self.profile_and_cache()
+        if self.state is None:
+            self.compile()
+        return self.fit()
+
+    def results(self) -> Dict:
+        """The reference's result dict (plus ``update_time_s``, the median
+        sparse-update share of a step)."""
+        self._require("engine", "profile_and_cache", "results")
+        # the first two steps hold the kernel loads and first launches
+        timed = (self.step_times[2:] if len(self.step_times) > 4
+                 else self.step_times) or [0.0]
+        updates = (self.update_times[2:] if len(self.update_times) > 4
+                   else self.update_times) or [0.0]
+        samples_per_s = (
+            self._fit_steps * self.config.data.batch_size / self._fit_wall_s
+            if self._fit_wall_s > 0 else 0.0
+        )
+        return {
+            "losses": list(self.losses),
+            "step_time_s": float(np.median(timed)),
+            "host_time_s": float(np.median(self.host_times or [0.0])),
+            "update_time_s": float(np.median(updates)),
+            "setup_s": sum(self.stage_times.values()),
+            "pipeline": False,
+            "sampler_workers": 0,
+            "samples_per_s": float(samples_per_s),
+            "overlap_fraction": 0.0,  # serial loop: nothing overlaps
+            "queue_bytes_per_step": 0.0,
+            "hit_rates": self.engine.cache.hit_rates(),
+            "partitioning": self.mp.summary(),
+            "meta_local": self.meta_local,
+            "cache_allocation": dict(self.engine.allocation.rows),
+            "executor": self.executor.name if self.executor else None,
+        }
+
+    # -- checkpoint / resume --------------------------------------------------------
+
+    def config_fingerprint(self) -> str:
+        """sha256 over the canonical config dict — stamped into every
+        checkpoint manifest so :meth:`restore` refuses state trained under
+        a different configuration (the reference computes the same)."""
+        blob = json.dumps(self.config.to_dict(), sort_keys=True, default=str)
+        return hashlib.sha256(blob.encode()).hexdigest()
+
+    def _ckpt_tree(self) -> Dict:
+        """The checkpointable tree: executor state (parameter stacks + Adam),
+        learnable tables + Adam rows + step counters, readmission EMA, and
+        the cache residency — the reference's keys."""
+        snap = self.engine.state_snapshot()
+        return {
+            "state": self.state,
+            "embed": {
+                "tables": snap["tables"],
+                "m": snap["m"],
+                "v": snap["v"],
+                "steps": {t: np.int64(s) for t, s in snap["steps"].items()},
+                "hotness_ema": snap["hotness_ema"],
+                "residency": {t: np.asarray(ids, np.int64)
+                              for t, ids in snap["residency"].items()},
+            },
+        }
+
+    def save(self, directory: Optional[str] = None, name: str = "ckpt") -> str:
+        """Atomically checkpoint the full session state at the current step
+        (:func:`repro_torch.checkpoint.save_checkpoint`).  The manifest's
+        ``extra`` records the config fingerprint and the sampler position,
+        so :meth:`restore` resumes the loss trajectory.  ``directory``
+        defaults to ``checkpoint.dir``."""
+        from repro_torch.checkpoint import save_checkpoint
+
+        self._require("state", "compile", "save")
+        directory = directory or self.config.checkpoint.dir
+        if directory is None:
+            raise ValueError(
+                "save() needs a directory (argument or checkpoint.dir config)")
+        step = self._steps_done
+        epoch_seed, idx = self._schedule().seed_and_index(step)
+        extra = {
+            "fingerprint": self.config_fingerprint(),
+            "steps_done": step,
+            "epoch_seed": int(epoch_seed),
+            "step_in_epoch": int(idx),
+            "seed": int(self.config.run.seed),
+        }
+        path = save_checkpoint(directory, step, self._ckpt_tree(), name=name, extra=extra)
+        self._prune_checkpoints(directory, name)
+        return path
+
+    def restore(self, directory: Optional[str] = None,
+                step: Optional[int] = None, name: str = "ckpt") -> int:
+        """Load a committed checkpoint (the port's or the reference's) and
+        position the session at its step.  Runs any missing stages first,
+        verifies the config fingerprint and every array's hash
+        (:class:`~repro_torch.checkpoint.CheckpointError`), so the next
+        ``fit``/``step`` continues the interrupted run.  Returns the step."""
+        from repro_torch.checkpoint import (CheckpointError, latest_step,
+                                            load_checkpoint, read_manifest)
+
+        directory = directory or self.config.checkpoint.dir
+        if directory is None:
+            raise ValueError(
+                "restore() needs a directory (argument or checkpoint.dir)")
+        if step is None:
+            step = latest_step(directory, name)
+            if step is None:
+                raise CheckpointError(
+                    f"no committed checkpoint found in {directory!r}")
+        if self.graph is None:
+            self.build_graph()
+        if self.spec is None:
+            self.partition()
+        if self.engine is None:
+            self.profile_and_cache()
+        if self.state is None:
+            self.compile()
+        manifest = read_manifest(directory, step, name)
+        extra = manifest.get("extra", {})
+        fp = extra.get("fingerprint")
+        if fp and fp != self.config_fingerprint():
+            raise CheckpointError(
+                f"checkpoint at step {step} was written under a different "
+                f"HetaConfig (fingerprint {fp[:12]}… != "
+                f"{self.config_fingerprint()[:12]}…)")
+        template = self._ckpt_tree()
+        # residency sets change size across rebalances: their template
+        # shapes come from the manifest
+        template["embed"]["residency"] = {
+            key.split("/", 2)[2]: np.zeros(tuple(manifest["shapes"][key]), np.int64)
+            for key in manifest.get("keys", [])
+            if key.startswith("embed/residency/")
+        }
+        tree = load_checkpoint(directory, step, template, name=name)
+        self.state = tree["state"]
+        emb = tree["embed"]
+        self.engine.load_state({
+            "tables": emb["tables"],
+            "m": emb["m"],
+            "v": emb["v"],
+            "steps": {t: int(s) for t, s in emb["steps"].items()},
+            "hotness_ema": emb["hotness_ema"],
+            "residency": emb["residency"],
+        })
+        self._steps_done = int(extra.get("steps_done", step))
+        return step
+
+    def _maybe_checkpoint(self) -> None:
+        """Periodic checkpointing: every ``checkpoint.every_steps`` consumed
+        steps, :meth:`save` to ``checkpoint.dir``."""
+        c = self.config.checkpoint
+        if (c.every_steps > 0 and self._steps_done > 0
+                and self._steps_done % c.every_steps == 0):
+            self.save(c.dir)
+
+    def _prune_checkpoints(self, directory: str, name: str) -> None:
+        """Keep only the newest ``checkpoint.keep`` committed checkpoints
+        (0 = keep everything)."""
+        keep = self.config.checkpoint.keep
+        if keep <= 0:
+            return
+        steps = sorted(
+            int(m.group(1))
+            for f in os.listdir(directory)
+            if (m := re.fullmatch(rf"{name}_(\d+)\.npz", f))
+            and os.path.exists(os.path.join(directory, f + ".json"))
+        )
+        for s in steps[:-keep]:
+            base = os.path.join(directory, f"{name}_{s:08d}.npz")
+            for p in (base, base + ".json"):
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
+
+    # -- the training schedule --------------------------------------------------
+
+    def _schedule(self, start_step: int = 0):
+        """The epoch schedule of the training loop: epoch ``e`` starts at
+        step ``e * steps_per_epoch`` and shuffles with ``run.seed + 2 +
+        first_step_of_epoch``, as the reference's."""
+        from repro_torch.data.worker_pool import EpochSchedule
+
+        E = self.sampler.steps_per_epoch()
+        if E == 0:
+            raise ValueError(
+                f"batch_size ({self.config.data.batch_size}) exceeds the "
+                f"number of train nodes ({len(self.graph.train_nodes)})"
+            )
+        return EpochSchedule(self.config.run.seed + 2, E, start_step=start_step)
+
+    def _batch_for_step(self, s: int):
+        """The training batch of global step ``s`` — a pure function of
+        ``(config seed, s)``."""
+        epoch_seed, i = self._schedule().seed_and_index(s)
+        return self.sampler.batch_at(i, epoch_seed=epoch_seed)
+
+    def _next_batch(self):
+        return self._batch_for_step(self._steps_done)
+
+    # -- stage 6: the online inference tier (repro_torch.serve) ----------------
 
     def infer_all(self, node_block: Optional[int] = None,
                   shm: Optional[bool] = None):

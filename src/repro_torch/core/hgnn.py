@@ -8,7 +8,8 @@ The sampler (``repro_torch.graph.sampler``) materializes the metatree as
 *branches*; a branch at depth d feeds HGNN layer k-d+1.  Everything
 model-specific lives in the relation-module IR (``repro_torch.core.relmod``):
 this module walks the metatree to initialize whatever the declaration asks
-for.  The dict-form forward and loss join with the training slice.
+for.  The dict-form forward and loss (the ``vanilla``/``raf`` executors) are
+a later slice of the port: training runs on the stacked SPMD forward.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ boundaries.  This module keeps the branch -> partition assignment the SPMD
 plan (``repro_torch.core.raf_spmd``) is built from: the meta-partitioning
 placement of Algorithm 2 and the naive random placement of the ablation.
 The simulated multi-partition forward and the communication accounting
-join with the training slice.
+(the dict-form ``raf`` executor) are a later slice of the port.
 """
 
 from __future__ import annotations

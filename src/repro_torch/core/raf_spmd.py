@@ -11,10 +11,16 @@ unique storage-key lists, per-slot index arrays, and shared-slot groups.
 :func:`stack_params_from_dict` packs each scope's parameters into
 ``[P, U, ...]`` slabs.  The plan is numpy; only the stacks are tensors.
 
-In this slice every shard lives on one device and the plan feeds
-layer-wise inference (``repro_torch.serve.full_graph``); the stacked
-training forward, ``sync_stack_grads`` and the train step join with the
-training slice.
+Every shard lives on one device.  :func:`raf_spmd_forward` runs the
+shards one after another, and the reference's cross-shard ``psum`` of the
+root partials is a sum over the shard axis; the ``local_combine=False``
+ablation (naive placement) segment-sums every shard's outputs over global
+parent slots, and each shard then takes its own slice.  Segment sums go
+through the deterministic one-hot :func:`~repro_torch.kernels.
+stacked_relation_agg.segment_sum`, so a run repeats bit for bit.
+Parameters are plain trees of tensors (the stack dicts); gradients come
+from ``torch.autograd.grad`` (:func:`grad_step`), pass through
+:func:`sync_stack_grads`, then Adam (:func:`train_step`).
 """
 
 from __future__ import annotations
@@ -28,14 +34,24 @@ import torch
 from repro_torch.core.hgnn import HGNNConfig, Params, rel_context
 from repro_torch.core.raf import BranchAssignment
 from repro_torch.core.relmod import SCOPE_CONTAINER, storage_key
+from repro_torch.data.staging import StackRecipe, stack_batch_host
 from repro_torch.device import resolve_device
-from repro_torch.graph.sampler import SampleSpec
+from repro_torch.graph.sampler import SampledBatch, SampleSpec
+from repro_torch.optim.adam import AdamConfig, adam_update, tree_map
 
 __all__ = [
     "LevelPlan",
     "StackedPlan",
     "build_plan",
     "stack_params_from_dict",
+    "stack_recipe",
+    "stack_batch",
+    "raf_spmd_forward",
+    "raf_spmd_logits",
+    "loss_fn",
+    "sync_stack_grads",
+    "grad_step",
+    "train_step",
 ]
 
 
@@ -257,3 +273,261 @@ def stack_params_from_dict(plan: StackedPlan, params: Params,
         for leaf, v in params["head"].items()
     }
     return stacks
+
+
+# --------------------------------------------------------------------------
+# batch stacking (host-side feature gathers)
+# --------------------------------------------------------------------------
+
+
+def stack_recipe(plan: StackedPlan) -> StackRecipe:
+    """The plan's picklable host-staging recipe (memoized on the plan)."""
+    recipe = getattr(plan, "_stack_recipe", None)
+    if recipe is None:
+        recipe = StackRecipe.from_plan(plan)
+        plan._stack_recipe = recipe
+    return recipe
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: on a GPU through pinned
+    memory with an asynchronous copy on the current stream (PyTorch keeps
+    the pinned buffer until the copy is done); on the CPU without a copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def stack_batch(
+    plan: StackedPlan,
+    batch: SampledBatch,
+    tables: Dict[str, np.ndarray],
+    device,
+) -> Dict[str, torch.Tensor]:
+    """The stacked device arrays of one sampled batch: the host gathers of
+    :func:`repro_torch.data.staging.stack_batch_host`, then one copy per
+    array to ``device``.  ``tables`` holds a feature table for every node
+    type (learnable tables included — the embed engine supplies them)."""
+    device = torch.device(device)
+    host = stack_batch_host(stack_recipe(plan), batch, tables)
+    return {k: _to_device(v, device) for k, v in host.items()}
+
+
+# --------------------------------------------------------------------------
+# the forward over every shard on one device
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _StagedLevel:
+    """One level's plan tables on the device, staged once per plan."""
+
+    slot_u: Dict[str, List[torch.Tensor]]  # scope -> per shard [rb] int32
+    valid: torch.Tensor  # [P, rb] float32
+    parent_local: torch.Tensor  # [P, rb] int64
+    parent_global: torch.Tensor  # [P, rb] int64
+
+
+def _staged_levels(plan: StackedPlan, stacks: Dict, device: torch.device):
+    """Per level, the slot indices (range-checked against each scope's
+    stack rows), validity and parent maps on ``device`` — memoized on the
+    plan, so a training run copies them once."""
+    from repro_torch.kernels.stacked_relation_agg import stage_slot_u
+
+    cache = plan.__dict__.setdefault("_staged", {})
+    key = str(device)
+    if key not in cache:
+        scope_of = {s.scope: s.name for s in plan.module.specs}
+        levels = []
+        for lp in plan.levels:
+            rows = {scope: stacks[f"layer{lp.layer}"][scope_of[scope]].shape[1]
+                    for scope in plan.module.scopes}
+            levels.append(_StagedLevel(
+                slot_u={scope: [stage_slot_u(lp.slot_u[scope][p], rows[scope], device)
+                                for p in range(plan.num_shards)]
+                        for scope in plan.module.scopes},
+                valid=torch.from_numpy(lp.valid.astype(np.float32)).to(device),
+                parent_local=torch.from_numpy(lp.parent_local).to(device),
+                parent_global=torch.from_numpy(lp.parent_global).to(device),
+            ))
+        cache[key] = levels
+    return cache[key]
+
+
+def _agg_level(plan: StackedPlan, lp: LevelPlan, staged: _StagedLevel, stacks,
+               h_in, qfeat, mask, p: int, kernels=None):
+    """Relation-specific aggregation for one level on shard ``p``, through
+    :func:`repro_torch.kernels.stacked_relation_agg.stacked_agg`: one call
+    covers every branch slot of the shard, weights read straight from the
+    shard's ``[U, ...]`` stack rows.
+
+    h_in  [rb, n_d, d_in] -> out [rb, n_prev, hidden]
+    """
+    from repro_torch.kernels.stacked_relation_agg import stacked_agg
+
+    module = plan.module
+    layer = stacks[f"layer{lp.layer}"]
+    local = {s.name: layer[s.name][p] for s in module.specs}  # each [U, ...]
+    slot_u = {scope: staged.slot_u[scope][p] for scope in module.scopes}
+    rb, n_d, d_in = h_in.shape
+    f = lp.fanout
+    n_prev = n_d // f
+    hg = h_in.reshape(rb, n_prev, f, d_in)
+    mg = mask.reshape(rb, n_prev, f)
+    out = stacked_agg(module, local, slot_u, hg, qfeat, mg, opts=kernels)
+    return out * staged.valid[p][:, None, None].to(out.dtype)
+
+
+def raf_spmd_forward(
+    plan: StackedPlan,
+    stacks: Dict,
+    arrays: Dict,
+    local_combine: bool = True,
+    kernels=None,
+) -> torch.Tensor:
+    """Root embedding ``[B, hidden]``: every shard's levels, leaf first,
+    then the sum of the shards' root partials (the reference's RAF
+    ``psum``, Alg. 1 l.6).  ``kernels`` (a ``KernelConfig`` or ``None``)
+    selects the aggregation path per level."""
+    from repro_torch.kernels.stacked_relation_agg import segment_sum
+
+    k = plan.spec.num_layers
+    P = plan.num_shards
+    staged = _staged_levels(plan, stacks, stacks["head"]["w"].device)
+    child: List[torch.Tensor] = []
+    for d in range(k, 0, -1):
+        lp = plan.levels[d - 1]
+        sl = staged[d - 1]
+        rb = lp.rb
+        outs = []
+        for p in range(P):
+            rows = slice(p * rb, (p + 1) * rb)
+            h_in = arrays[f"hfeat{d}"][rows] if d == k else torch.relu(child[p])
+            outs.append(_agg_level(plan, lp, sl, stacks, h_in, arrays[f"qfeat{d}"][rows],
+                                   arrays[f"mask{d}"][rows], p, kernels))
+        if d == 1:
+            root = outs[0].sum(dim=0)  # shard 0's partial aggregation [B, H]
+            for out in outs[1:]:
+                root = root + out.sum(dim=0)  # the RAF exchange
+            return root
+        prev_rb = plan.levels[d - 2].rb
+        if local_combine:
+            child = [segment_sum(outs[p], sl.parent_local[p], prev_rb) for p in range(P)]
+        else:
+            # naive placement: parents may live on another shard -> a full
+            # inner-level exchange of [R_{d-1}, N, H] partials (the ablation)
+            full = segment_sum(outs[0], sl.parent_global[0], prev_rb * P)
+            for p in range(1, P):
+                full = full + segment_sum(outs[p], sl.parent_global[p], prev_rb * P)
+            child = [full[p * prev_rb:(p + 1) * prev_rb] for p in range(P)]
+    raise ValueError("the plan has no levels")
+
+
+def raf_spmd_logits(plan: StackedPlan, stacks: Dict, arrays: Dict,
+                    local_combine: bool = True, kernels=None) -> torch.Tensor:
+    """Class scores ``relu(root) @ head.w + head.b`` of the batch's seeds."""
+    root = raf_spmd_forward(plan, stacks, arrays, local_combine, kernels)
+    return torch.relu(root) @ stacks["head"]["w"] + stacks["head"]["b"]
+
+
+def loss_fn(plan: StackedPlan, stacks: Dict, arrays: Dict,
+            local_combine: bool = True, kernels=None) -> torch.Tensor:
+    """Mean NLL of the seeds' labels under a float32 ``log_softmax``."""
+    logits = raf_spmd_logits(plan, stacks, arrays, local_combine, kernels)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, 1, arrays["labels"].to(torch.long)[:, None])
+    return nll.mean()
+
+
+# --------------------------------------------------------------------------
+# shared-parameter gradient synchronization
+# --------------------------------------------------------------------------
+
+
+def sync_stack_grads(plan: StackedPlan, grads: Dict) -> Dict:
+    """Sum gradients across stack slots holding the *same* parameter and
+    broadcast the sum back to every copy.
+
+    A storage key can occupy several slots — one relation sampled into
+    branches assigned to different shards, or a node type feeding
+    relations owned by different shards.  ``stack_params_from_dict`` seeds
+    all copies identically; summed (hence identical) gradients keep the
+    per-copy Adam trajectories identical too, so the stacked run follows
+    the dict-form run.  Scopes with no sharing are left untouched."""
+    from repro_torch.kernels.stacked_relation_agg import segment_sum
+
+    scope_of = {s.name: s.scope for s in plan.module.specs}
+    out = dict(grads)
+    for layer in plan.layers:
+        entry = dict(grads[f"layer{layer}"])
+        for leaf, g in entry.items():
+            scope = scope_of[leaf]
+            if not plan.has_shared(scope, layer):
+                continue
+            groups = plan.slot_groups[(scope, layer)]
+            seg = torch.from_numpy(groups.reshape(-1)).to(g.device)
+            flat = g.reshape((groups.size,) + tuple(g.shape[2:]))
+            summed = segment_sum(flat, seg, int(groups.max()) + 1)
+            entry[leaf] = summed[seg].reshape(g.shape)
+        out[f"layer{layer}"] = entry
+    return out
+
+
+# --------------------------------------------------------------------------
+# gradients and the train step
+# --------------------------------------------------------------------------
+
+
+def grad_step(
+    plan: StackedPlan,
+    stacks: Dict,
+    arrays: Dict,
+    local_combine: bool = True,
+    kernels=None,
+    learn_feats: bool = False,
+):
+    """``(loss, grads, feat_grads)``: the loss and its *raw* gradients with
+    respect to every stack leaf (the reference's ``make_grad_step``) and,
+    with ``learn_feats``, to every gathered feature array (``hfeat*`` /
+    ``qfeat*``; else ``{}``).  An input the loss does not read gets zeros
+    of its shape, as JAX returns them: R-GCN reads no ``qfeat``, yet the
+    reference still runs a (zero-gradient) sparse Adam step for it."""
+    params = tree_map(lambda t: t.detach().requires_grad_(True), stacks)
+    feats = ({k: v.detach().requires_grad_(True) for k, v in arrays.items()
+              if "feat" in k} if learn_feats else {})
+    leaves, paths = [], []
+    for layer in sorted(params):
+        for leaf in sorted(params[layer]):
+            leaves.append(params[layer][leaf])
+            paths.append((layer, leaf))
+    feat_keys = sorted(feats)
+    leaves += [feats[k] for k in feat_keys]
+    loss = loss_fn(plan, params, {**arrays, **feats}, local_combine, kernels)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, got)]
+    grads: Dict = {layer: {} for layer in params}
+    for (layer, leaf), g in zip(paths, got):
+        grads[layer][leaf] = g
+    gf = dict(zip(feat_keys, got[len(paths):]))
+    return loss.detach(), grads, gf
+
+
+def train_step(
+    plan: StackedPlan,
+    adam_cfg: AdamConfig,
+    stacks: Dict,
+    opt_state: Dict,
+    arrays: Dict,
+    local_combine: bool = True,
+    kernels=None,
+    learn_feats: bool = False,
+):
+    """One SPMD RAF train step: ``(stacks, opt_state, loss, feat_grads)``.
+    Stack gradients pass through :func:`sync_stack_grads` before Adam, so
+    parameters shared across shard slots stay consistent copies."""
+    loss, grads, gf = grad_step(plan, stacks, arrays, local_combine, kernels, learn_feats)
+    grads = sync_stack_grads(plan, grads)
+    with torch.no_grad():
+        stacks, opt_state = adam_update(adam_cfg, stacks, grads, opt_state)
+    return stacks, opt_state, loss, gf

@@ -22,8 +22,12 @@ per-node access counters, ``take_access_counts`` drains them, and
 incrementally (kept rows stay on the device, evicted learnable rows write
 home first, only admitted rows move host→device).
 
-The learnable write path (``fetch_states`` / ``write_learnable``) and the
-checkpoint hooks join with the training slice.
+The learnable write path: ``fetch_states`` returns a minibatch's rows with
+their row-aligned Adam states (hits from the device copy, misses from the
+host), and ``write_learnable`` writes the updated triple back to its single
+authoritative copy — device rows in place, host rows on the host.
+``merged_learnable_state`` / ``residency`` / ``set_residency`` serve the
+session's checkpoints.
 """
 
 from __future__ import annotations
@@ -225,6 +229,58 @@ class FeatureCache:
         out[miss_pos] = self._to_device(self.host[ntype][nids[~hit]])
         return out
 
+    def fetch_states(self, ntype: str, nids: np.ndarray):
+        """(rows, m, v) on the device for a learnable type: the rows through
+        :meth:`fetch` (so hit/miss counters and the all-hit gather kernel
+        apply), the Adam states from the device copy for hits and the host
+        for misses."""
+        rows = self.fetch(ntype, nids)
+        c = self.caches.get(ntype)
+        if c is None or c.m is None:
+            return (rows, self._to_device(self.host_m[ntype][nids]),
+                    self._to_device(self.host_v[ntype][nids]))
+        slots = c.slot_of[nids]
+        hit = slots >= 0
+        if hit.all():
+            sl = torch.from_numpy(slots).to(self.device)
+            return rows, c.m[sl], c.v[sl]
+        m = self._to_device(self.host_m[ntype][nids])
+        v = self._to_device(self.host_v[ntype][nids])
+        if hit.any():
+            pos = torch.from_numpy(np.nonzero(hit)[0]).to(self.device)
+            sl = torch.from_numpy(slots[hit]).to(self.device)
+            m[pos] = c.m[sl]
+            v[pos] = c.v[sl]
+        return rows, m, v
+
+    def write_learnable(self, ntype: str, nids: np.ndarray, rows: torch.Tensor,
+                        m: torch.Tensor, v: torch.Tensor) -> None:
+        """Write updated learnable rows (and their Adam states) to their
+        single authoritative copy: cached rows on the device, the rest on
+        the host."""
+        if ntype not in self.learnable:
+            raise ValueError(f"{ntype} is not learnable")
+        c = self.caches.get(ntype)
+        if c is None:
+            self.host[ntype][nids] = rows.cpu().numpy()
+            self.host_m[ntype][nids] = m.cpu().numpy()
+            self.host_v[ntype][nids] = v.cpu().numpy()
+            return
+        slots = c.slot_of[nids]
+        hit = slots >= 0
+        if hit.any():
+            sl = torch.from_numpy(slots[hit]).to(self.device)
+            sel = torch.from_numpy(np.nonzero(hit)[0]).to(self.device)
+            c.data[sl] = rows[sel]
+            c.m[sl] = m[sel]
+            c.v[sl] = v[sel]
+        if (~hit).any():
+            miss = nids[~hit]
+            sel = torch.from_numpy(np.nonzero(~hit)[0]).to(rows.device)
+            self.host[ntype][miss] = rows[sel].cpu().numpy()
+            self.host_m[ntype][miss] = m[sel].cpu().numpy()
+            self.host_v[ntype][miss] = v[sel].cpu().numpy()
+
     def fetch_many(self, requests: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Batched multi-type lookup: one device gather per node type.
 
@@ -340,6 +396,57 @@ class FeatureCache:
             }
         return moves
 
+    # -- checkpoint support ------------------------------------------------------
+
+    def merged_learnable_state(self):
+        """(tables, m, v): per learnable type, the host array with cached
+        rows merged in — the coherent full-table state a checkpoint stores.
+        Caller holds the engine's table lock."""
+        tables, m, v = {}, {}, {}
+        for t in self.learnable:
+            tab = self.host[t].copy()
+            mm = self.host_m[t].copy()
+            vv = self.host_v[t].copy()
+            c = self.caches.get(t)
+            if c is not None:
+                tab[c.ids] = c.data.cpu().numpy()
+                if c.m is not None:
+                    mm[c.ids] = c.m.cpu().numpy()
+                    vv[c.ids] = c.v.cpu().numpy()
+            tables[t], m[t], v[t] = tab, mm, vv
+        return tables, m, v
+
+    def residency(self) -> Dict[str, np.ndarray]:
+        """ntype -> cached node ids (the §6 residency profile)."""
+        return {t: c.ids.copy() for t, c in self.caches.items()}
+
+    def set_residency(self, ids_by_type: Dict[str, np.ndarray]) -> None:
+        """Rebuild every per-type cache to exactly these resident ids,
+        sourcing rows (and Adam states) from the host tables — the restore
+        path: callers write the authoritative full tables home first.
+        Caller holds the engine's table lock."""
+        for t in list(self.caches):
+            if t not in ids_by_type:
+                del self.caches[t]
+        for t, ids in ids_by_type.items():
+            if t not in self.host:
+                continue
+            ids = np.asarray(ids, np.int64)
+            slot_of = np.full(self.host[t].shape[0], -1, dtype=np.int64)
+            slot_of[ids] = np.arange(len(ids))
+            learn = t in self.learnable
+            old = self.caches.get(t)
+            self.caches[t] = _TypeCache(
+                ids=ids,
+                slot_of=slot_of,
+                data=self._to_device(self.host[t][ids]),
+                m=self._to_device(self.host_m[t][ids]) if learn else None,
+                v=self._to_device(self.host_v[t][ids]) if learn else None,
+                shard_of=ids % self.num_shards,
+                hits=old.hits if old is not None else 0,
+                misses=old.misses if old is not None else 0,
+            )
+
     # -- stats ----------------------------------------------------------------
 
     def hit_rates(self) -> Dict[str, float]:
@@ -354,3 +461,12 @@ class FeatureCache:
         with self._stats_lock:
             for c in self.caches.values():
                 c.hits = c.misses = 0
+
+    def miss_time(self, penalties: MissPenaltyProfile, bytes_per_elem: int = 4) -> float:
+        """Estimated seconds spent on cache misses so far (penalty model)."""
+        t_total = 0.0
+        with self._stats_lock:
+            for t, c in self.caches.items():
+                rb = row_bytes(penalties.dims[t], penalties.learnable[t], bytes_per_elem)
+                t_total += c.misses * penalties.ratios[t] * rb
+        return t_total

@@ -85,7 +85,7 @@ def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
     if n == 0 or d == 0:
         return out
     launch_kernel(table, torch.from_numpy(arr).to(table.device), out)
-    INFO.record((n, d))
+    INFO.record((table.shape[0], d, n))  # (rows, d, n): the table each fetch read
     return out
 
 

@@ -46,6 +46,9 @@ __all__ = [
 # CUDA launch defaults per op: (block_n, block_out, block_in)
 DEFAULT_BLOCKS: Dict[str, Tuple[int, int, int]] = {
     "stacked_mean_linear": (16, 64, 64),
+    # block_out is the d_out chunk of the backward's inner loop; block_in
+    # must divide the kernel's 256 threads
+    "stacked_mean_linear_dh": (32, 64, 64),
 }
 
 

@@ -1,12 +1,13 @@
 """HGNN serving entry point of the port: layer-wise inference + embedding server.
 
-Builds a session on the GPU (or ``--device cpu``), materializes every
-node's embedding via layer-wise full-graph inference (``Heta.infer_all``),
-starts the micro-batching ``EmbeddingServer`` (``Heta.serve``) and drives
-it with concurrent lookup threads — printing the inference time split,
-p50/p99 latency, QPS and per-type cache hit rates.  The parameters are the
-port's seeded init (training joins with a later slice).  All ``HetaConfig``
-flags apply (``--scale``, ``--serve-max-batch``, ``--serve-cache-mb``, ...).
+Builds a session on the GPU (or ``--device cpu``), trains it for
+``--steps`` steps (``Heta.fit``, 0 keeps the seeded init), materializes
+every node's embedding via layer-wise full-graph inference
+(``Heta.infer_all``), starts the micro-batching ``EmbeddingServer``
+(``Heta.serve``) and drives it with concurrent lookup threads — printing
+the inference time split, p50/p99 latency, QPS and per-type cache hit
+rates.  All ``HetaConfig`` flags apply (``--scale``, ``--steps``,
+``--serve-max-batch``, ``--serve-cache-mb``, ...).
 
 Usage:
   python -m repro_torch.launch.serve --scale 0.1
@@ -98,6 +99,9 @@ def main(argv=None) -> None:
     sess.partition()
     sess.profile_and_cache()
     sess.compile()
+    sess.fit()
+    print(f"trained {cfg.run.steps} steps (loss {sess.losses[-1]:.4f})"
+          if sess.losses else "no training")
 
     t0 = time.perf_counter()
     store = sess.infer_all()

@@ -1,0 +1,116 @@
+"""AdamW from its formulas (dense tensor trees + sparse row updates).
+
+Two entry points, as in the reference package:
+
+  * :func:`adam_update` — dense AdamW over a tree of tensors (nested dicts,
+    e.g. the SPMD parameter stacks).  Denominator ``sqrt(v / b2t) + eps``,
+    weight decay added to the update, optional global-norm clip.
+  * :func:`sparse_adam_rows` — per-row Adam for learnable feature tables
+    (paper §2.2/§6): only the rows a minibatch touched are updated, and the
+    row-aligned moments travel with the rows through the cache engine.
+    Bias correction with ``t = step + 1`` and denominator
+    ``sqrt(vhat) + eps``.
+
+The two forms differ on purpose (they are the reference's two formulas);
+each is kept as it is.  Neither uses ``torch.optim``: the optimizer state
+is a plain tree ``{"m": tree, "v": tree, "step": int32 scalar}``, so a
+checkpoint holds the same keys as the reference's.  Tree leaves are visited
+in sorted key order, the order JAX flattens a dict in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+__all__ = ["AdamConfig", "adam_init", "adam_update", "sparse_adam_rows", "global_norm",
+           "tree_map", "tree_leaves"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0  # 0 disables clipping
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts (``rest`` share the structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """Leaves of nested dicts in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def adam_init(params: Any) -> Dict[str, Any]:
+    return {
+        "m": tree_map(torch.zeros_like, params),
+        "v": tree_map(torch.zeros_like, params),
+        "step": torch.zeros((), dtype=torch.int32),
+    }
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves))) if leaves else torch.zeros(())
+
+
+def adam_update(
+    cfg: AdamConfig, params: Any, grads: Any, state: Dict[str, Any], lr_scale=1.0
+) -> Tuple[Any, Dict[str, Any]]:
+    """One dense AdamW step; returns ``(params, state)`` as new trees."""
+    step = state["step"] + 1
+    if cfg.grad_clip > 0:
+        gn = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+        grads = tree_map(lambda g: g * scale.to(device=g.device, dtype=g.dtype), grads)
+    # bias corrections in float32 as the reference computes them, handed to
+    # the leaf updates as exact Python scalars (no per-leaf device copy)
+    t = step.to(torch.float32)
+    b1t = float(1.0 - cfg.b1 ** t)
+    b2t = float(1.0 - cfg.b2 ** t)
+
+    def upd(p, g, m, v):
+        g32 = g.to(torch.float32)
+        m = cfg.b1 * m + (1 - cfg.b1) * g32
+        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+        update = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
+        if cfg.weight_decay:
+            update = update + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - cfg.lr * lr_scale * update).to(p.dtype), m, v
+
+    out = tree_map(upd, params, grads, state["m"], state["v"])
+    pick = lambda i: tree_map(lambda triple: triple[i], out)  # noqa: E731
+    return pick(0), {"m": pick(1), "v": pick(2), "step": step}
+
+
+def sparse_adam_rows(
+    cfg: AdamConfig,
+    rows: torch.Tensor,  # [n, d] current values of the touched rows
+    grads: torch.Tensor,  # [n, d]
+    m: torch.Tensor,  # [n, d] row-aligned first moment
+    v: torch.Tensor,  # [n, d] row-aligned second moment
+    step,  # int: the table-global step count
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Adam step on a row slice of a learnable feature table; the caller
+    (the cache engine) fetched ``rows``/``m``/``v`` for the unique node ids
+    of a minibatch and scatters the returned values back."""
+    g32 = grads.to(torch.float32)
+    t = torch.tensor(step, dtype=torch.float32) + 1.0
+    m = cfg.b1 * m + (1 - cfg.b1) * g32
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+    mhat = m / float(1.0 - cfg.b1 ** t)
+    vhat = v / float(1.0 - cfg.b2 ** t)
+    new = rows.to(torch.float32) - cfg.lr * mhat / (torch.sqrt(vhat) + cfg.eps)
+    return new.to(rows.dtype), m, v

@@ -6,8 +6,9 @@ it runs on the GPU host as it is:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerance: fp32, atol 1e-5 / rtol 1e-5 for the aggregation (the kernel sums
-the fanout and the contraction in its own order); the gather is exact.
+Tolerance: fp32, atol 1e-5 / rtol 1e-5 for the aggregation and its
+backward (the kernels sum the fanout and the contraction in their own
+order); the gather is exact.
 TF32 is switched off so the plain version's matmul runs in full fp32.
 """
 
@@ -15,10 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api.config import KernelConfig
+from repro_torch.core.relmod import get_relation_module
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
 from repro_torch.kernels.stacked_relation_agg import (
+    stacked_agg,
     stacked_mean_linear,
+    stacked_mean_linear_dh,
+    stacked_mean_linear_dh_ref,
     stacked_mean_linear_ref,
     stage_slot_u,
 )
@@ -109,3 +115,82 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         gather_rows(torch.zeros((4, 3), device=cuda_device), torch.zeros(1, dtype=torch.long,
                                                                           device=cuda_device))
+
+
+# (rb, n, f, d_in, d_out, U) of the backward: the ragged shapes above and
+# the training path's two levels at batch 1024 (leaf: d_in = d_pad = 128)
+DH_SHAPES = ML_SHAPES[:5] + [(3, 1024, 4, 64, 64, 3), (6, 4096, 3, 128, 64, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb,n,f,di,do,U", DH_SHAPES)
+def test_cuda_stacked_mean_linear_dh_matches_plain(cuda_device, rb, n, f, di, do, U):
+    _, mask, w, _, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=rb * n)
+    g = np.random.default_rng(do).standard_normal((rb, n, do)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (g, mask, w)]
+    before = kops.KERNELS["stacked_mean_linear_dh"].launches
+    got = stacked_mean_linear_dh(*args, slot_u)
+    torch.cuda.synchronize()
+    assert kops.KERNELS["stacked_mean_linear_dh"].launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               stacked_mean_linear_dh_ref(*args, slot_u).cpu().numpy(), **TOL)
+    staged = stacked_mean_linear_dh(*args, stage_slot_u(slot_u, U, cuda_device))
+    assert torch.equal(staged, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb,n,f,di,do,U", ML_SHAPES[:4])
+def test_cuda_autograd_matches_cpu(cuda_device, rb, n, f, di, do, U):
+    """dh / dw / db through the autograd Function on the card (both
+    kernels) against the same Function on the CPU (plain versions)."""
+    h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=n)
+    g = np.random.default_rng(rb).standard_normal((rb, n, do)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        th, tw, tb = (torch.from_numpy(a).to(dev).requires_grad_(True) for a in (h, w, b))
+        out = stacked_mean_linear(th, torch.from_numpy(mask).to(dev), tw, tb, slot_u)
+        grads.append([x.cpu().numpy() for x in torch.autograd.grad(
+            out, (th, tw, tb), torch.from_numpy(g).to(dev))])
+    for name, a, c in zip(("dh", "dw", "db"), grads[1], grads[0]):
+        np.testing.assert_allclose(a, c, **TOL, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_dh_refuses_what_it_does_not_take(cuda_device):
+    g = torch.zeros((2, 3, 6), device=cuda_device)
+    mask = torch.ones((2, 3, 4), dtype=torch.bool, device=cuda_device)
+    w = torch.zeros((2, 5, 6), device=cuda_device)
+    with pytest.raises(ValueError):
+        stacked_mean_linear_dh(g.double(), mask, w, np.array([0, 1]))
+    with pytest.raises(ValueError):
+        stacked_mean_linear_dh(g, mask, w.cpu(), np.array([0, 1]))
+    with pytest.raises(ValueError, match="divide"):
+        stacked_mean_linear_dh(g, mask, w, np.array([0, 1]), block_in=48)
+    with pytest.raises(ValueError):
+        stacked_mean_linear_dh(g, mask, w, np.array([0, 1]), block_n=4096, block_in=256)
+    with pytest.raises(IndexError):
+        stacked_mean_linear_dh(g, mask, w, np.array([0, 2]))
+
+
+@pytest.mark.cuda
+def test_cuda_block_override_reaches_only_the_forward(cuda_device):
+    """kernels.block_* overrides that the forward kernel takes but the dh
+    kernel would refuse (block_n 64 at block_in 128) train as the defaults do:
+    the backward launches the dh kernel at its own default blocks."""
+    rb, n, f, di, do, U = 6, 200, 3, 128, 64, 6
+    h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=11)
+    g = np.random.default_rng(12).standard_normal((rb, n, do)).astype(np.float32)
+    grads = []
+    for opts in (None, KernelConfig(block_n=64, block_in=128)):
+        th, tw, tb = (torch.from_numpy(a).to(cuda_device).requires_grad_(True)
+                      for a in (h, w, b))
+        before = kops.KERNELS["stacked_mean_linear_dh"].launches
+        out = stacked_agg(get_relation_module("rgcn"), {"w": tw, "b": tb},
+                          {"relation": slot_u}, th, None,
+                          torch.from_numpy(mask).to(cuda_device), opts=opts)
+        grads.append([x.cpu().numpy() for x in torch.autograd.grad(
+            out, (th, tw, tb), torch.from_numpy(g).to(cuda_device))])
+        torch.cuda.synchronize()
+        assert kops.KERNELS["stacked_mean_linear_dh"].launches == before + 1
+    for name, a, c in zip(("dh", "dw", "db"), grads[1], grads[0]):
+        np.testing.assert_allclose(a, c, **TOL, err_msg=name)

@@ -3,12 +3,14 @@
 On the CPU each op runs its plain PyTorch version; the same numpy inputs go
 through the reference's oracle and its Pallas kernel in interpret mode.
 Tolerance: fp32, atol 1e-5 / rtol 1e-5 — the plain version sums over the
-fanout and the contraction in PyTorch's order, not XLA's.  The CUDA kernels
+fanout and the contraction in PyTorch's order, not XLA's; the stack-form
+weight gradients also sum slots sharing a stack row in another order.  The CUDA kernels
 themselves run only on a GPU: ``tests/test_torch_cuda.py`` (no JAX import,
 so it runs on the GPU host) and ``chip_smoke.py`` hold them against their
 plain versions on the card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,15 +20,21 @@ from repro.core.relmod import get_relation_module as ref_module
 from repro.kernels.gather_rows.kernel import gather_rows_pallas
 from repro.kernels.gather_rows.ref import gather_rows_ref as jax_gather_rows_ref
 from repro.kernels.stacked_relation_agg import stacked_agg_ref as jax_stacked_agg_ref
+from repro.kernels.ops import pad_axes, pad_to
 from repro.kernels.stacked_relation_agg import stacked_mean_linear as jax_stacked_mean_linear
+from repro.kernels.stacked_relation_agg.kernel import stacked_mean_linear_dh_pallas
+from repro.kernels.stacked_relation_agg.ops import stacked_mean_linear_blocks
 from repro_torch.api.config import KernelConfig
 from repro_torch.core.relmod import get_relation_module
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_cfg, gather_rows_ref
 from repro_torch.kernels.stacked_relation_agg import (
     stacked_agg,
+    segment_sum,
     stacked_agg_ref,
     stacked_mean_linear,
+    stacked_mean_linear_dh,
+    stacked_mean_linear_dh_ref,
     stacked_mean_linear_ref,
     stage_slot_u,
 )
@@ -90,6 +98,31 @@ def test_stacked_agg_oracle_path_matches_kernel_path(rb, n, f, di, do, U):
     off = stacked_agg(*args, opts=KernelConfig(enabled=False)).numpy()
     np.testing.assert_array_equal(off, stacked_agg_ref(*args).numpy())
     np.testing.assert_allclose(off, stacked_agg(*args).numpy(), **TOL)
+
+
+def test_block_override_leaves_the_dh_kernel_at_its_defaults(monkeypatch):
+    """kernels.block_* size the forward kernel only: the backward asks for
+    dh with no block sizes, so the dh kernel launches at DEFAULT_BLOCKS
+    (its limits differ: block_n 64 at block_in 128 is a valid forward and
+    an invalid dh launch).  Gradients match the run without the override."""
+    from repro_torch.kernels.stacked_relation_agg import ops as sml
+
+    calls = []
+    dh = sml.stacked_mean_linear_dh
+    monkeypatch.setattr(sml, "stacked_mean_linear_dh",
+                        lambda *a, **k: calls.append((len(a), k)) or dh(*a, **k))
+    h, q, mask, w, b, slot_u = _mean_linear_case(6, 20, 3, 128, 64, 6, seed=5)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal((6, 20, 64)).astype(np.float32))
+    grads = []
+    for opts in (None, KernelConfig(block_n=64, block_in=128)):
+        th, tw, tb = (torch.from_numpy(a).requires_grad_(True) for a in (h, w, b))
+        out = stacked_agg(get_relation_module("rgcn"), {"w": tw, "b": tb},
+                          {"relation": slot_u}, th, torch.from_numpy(q),
+                          torch.from_numpy(mask), opts=opts)
+        grads.append(torch.autograd.grad(out, (th, tw, tb), g))
+    assert calls == [(4, {}), (4, {})]
+    for a, c in zip(*grads):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("rows,d,n,idx_dtype", [
@@ -167,13 +200,18 @@ def test_kernel_options_policy():
                                "stacked_mean_linear")[::2] == (8, 32)
     with pytest.raises(NotImplementedError):
         kops.resolve_blocks(KernelConfig(autotune=True), "stacked_mean_linear")
-    assert set(kops.KERNELS) >= {"stacked_mean_linear", "gather_rows"}
+    assert set(kops.KERNELS) >= {"stacked_mean_linear", "stacked_mean_linear_dh",
+                                 "gather_rows"}
+    assert kops.resolve_blocks(None, "stacked_mean_linear_dh") == \
+        kops.DEFAULT_BLOCKS["stacked_mean_linear_dh"]
 
 
 def test_cpu_path_launches_no_kernel():
     kops.reset_launch_counts()
     h, q, mask, w, b, slot_u = _mean_linear_case(2, 5, 3, 4, 6, 2, seed=1)
-    stacked_mean_linear(*(torch.from_numpy(a) for a in (h, mask, w, b)), slot_u)
+    th = torch.from_numpy(h).requires_grad_(True)
+    out = stacked_mean_linear(th, *(torch.from_numpy(a) for a in (mask, w, b)), slot_u)
+    out.sum().backward()
     gather_rows(torch.zeros((4, 2)), np.array([1, 2]))
     assert all(info.launches == 0 for info in kops.KERNELS.values())
 
@@ -181,11 +219,77 @@ def test_cpu_path_launches_no_kernel():
 def test_kernel_sources_declare_c_entry_points():
     from repro_torch.kernels import build
 
-    assert set(build.SOURCES) == {"stacked_mean_linear", "gather_rows"}
+    assert set(build.SOURCES) == {"stacked_mean_linear", "stacked_mean_linear_dh",
+                                  "gather_rows"}
     for name, entry in (("stacked_mean_linear", "stacked_mean_linear_fwd"),
+                        ("stacked_mean_linear_dh", "stacked_mean_linear_dh"),
                         ("gather_rows", "gather_rows_f32")):
         text = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {entry}(' in text
         assert "return (int)cudaGetLastError();" in text
         assert build.library_path(name).name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+# --------------------------------------------------------------------------
+# the backward: dh kernel's plain version and the autograd seam
+# --------------------------------------------------------------------------
+
+
+def _jax_dh_pallas(g, mask, w, slot_u):
+    """The reference's dh Pallas kernel in interpret mode, padded and
+    sliced as its custom VJP does (``ops.py:_ml_vjp_bwd``)."""
+    rb, n, do = g.shape
+    f, di = mask.shape[2], w.shape[1]
+    bn, bo, bc = stacked_mean_linear_blocks(n, f, di, do, 128, 128, 512)
+    out = stacked_mean_linear_dh_pallas(
+        pad_axes(jnp.asarray(g), {1: bn, 2: bo}), pad_to(jnp.asarray(mask), 1, bn),
+        pad_axes(jnp.asarray(w), {1: bc, 2: bo}), jnp.asarray(slot_u, jnp.int32),
+        block_n=bn, block_out=bo, block_in=bc, interpret=True)
+    return np.asarray(out)[:, :n, :, :di]
+
+
+@pytest.mark.parametrize("rb,n,f,di,do,U", ML_SHAPES)
+def test_stacked_mean_linear_dh_matches_reference(rb, n, f, di, do, U):
+    h, q, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=rb + di)
+    g = np.random.default_rng(n).standard_normal((rb, n, do)).astype(np.float32)
+    ref = _jax_dh_pallas(g, mask, w, slot_u)
+    tg, tm, tw = (torch.from_numpy(a) for a in (g, mask, w))
+    plain = stacked_mean_linear_dh_ref(tg, tm, tw, slot_u).numpy()
+    assert plain.shape == ref.shape == (rb, n, f, di)
+    np.testing.assert_allclose(plain, ref, **TOL)
+    # the CPU wrapper is the plain version, bit for bit
+    np.testing.assert_array_equal(stacked_mean_linear_dh(tg, tm, tw, slot_u).numpy(), plain)
+    np.testing.assert_array_equal(
+        stacked_mean_linear_dh(tg, tm, tw, stage_slot_u(slot_u, U, "cpu")).numpy(), plain)
+
+
+@pytest.mark.parametrize("rb,n,f,di,do,U", ML_SHAPES)
+def test_stacked_mean_linear_grads_match_reference_vjp(rb, n, f, di, do, U):
+    """dh / dw / db of the port's autograd Function (stack-form weight
+    gradients) against ``jax.vjp`` of the reference's custom-VJP op, with
+    slots sharing stack rows."""
+    h, q, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=di)
+    slot_u[: min(rb, 2)] = 0  # at least two slots on stack row 0 when rb > 1
+    g = np.random.default_rng(do).standard_normal((rb, n, do)).astype(np.float32)
+    _, vjp = jax.vjp(lambda h_, w_, b_: jax_stacked_mean_linear(
+        h_, jnp.asarray(mask), w_, b_, jnp.asarray(slot_u), interpret=True),
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(b))
+    ref = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    th, tw, tb = (torch.from_numpy(a).requires_grad_(True) for a in (h, w, b))
+    out = stacked_mean_linear(th, torch.from_numpy(mask), tw, tb, slot_u)
+    got = torch.autograd.grad(out, (th, tw, tb), torch.from_numpy(g))
+    for name, a, c in zip(("dh", "dw", "db"), got, ref):
+        assert a.shape == c.shape, name
+        np.testing.assert_allclose(a.numpy(), c, **TOL, err_msg=name)
+
+
+def test_segment_sum_is_index_add_and_deterministic():
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.standard_normal((7, 5, 3)).astype(np.float32))
+    seg = torch.tensor([0, 2, 2, 0, 4, 2, 0])
+    got = segment_sum(x, seg, 6)
+    want = torch.zeros((6, 5, 3)).index_add_(0, seg, x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    assert torch.equal(got[[1, 3, 5]], torch.zeros((3, 5, 3)))
+    assert torch.equal(got, segment_sum(x, seg, 6))

@@ -13,40 +13,51 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      process per source, all at once;
   3. kernels vs plain — each kernel's wrapper on the card at ragged shapes
      and the training path's shapes against its plain PyTorch version
-     (stacked_mean_linear and its backward stacked_mean_linear_dh atol/rtol
-     1e-5: the kernels sum in their own order; gather_rows exact);
-  4. training — a port ``Heta`` session on the GPU at the default model's
-     full width (R-GCN, hidden 64, learnable_dim 64, 2 layers, fanouts 4,3,
+     (atol/rtol 1e-5: the kernels sum in their own order; gather_rows
+     exact).  The attention kernels (stacked_attn_epilogue and its backward
+     stacked_attn_dh) in both operand variants — R-GAT's (eb, slope 0.2,
+     values shared with the logits projection, a per-slot qv) and HGT's
+     (separate values, pe/pv transforms) — with and without residuals, at
+     f in {1, 3, 16, 64, 100}, ragged n and d_in (789), fully masked rows
+     and shared stack rows;
+  4. training — a port ``Heta`` session on the GPU at each model's full
+     width (hidden 64, 4 heads, learnable_dim 64, 2 layers, fanouts 4,3,
      learnable tables through the default 4 MiB cache) on ogbn-mag capped
      at in-degree 16, batch 1024: build_graph -> partition ->
      profile_and_cache -> compile -> fit (20 steps, saving a checkpoint at
-     step 10) -> evaluate.  Launch counts are reset just before the fit and
-     read just after: all three kernels must have launched.  The losses
-     must be finite and fall;
+     step 10) -> evaluate; R-GCN (4), then R-GAT and HGT (4b).  Launch
+     counts are reset just before each fit and read just after: R-GCN must
+     launch stacked_mean_linear, stacked_mean_linear_dh and gather_rows;
+     R-GAT and HGT must launch stacked_attn_epilogue and stacked_attn_dh,
+     and their query-side projections stacked_mean_linear (f = 1) and its
+     backward.  The losses must be finite and the step-0 batch must score
+     lower after the fit;
   5. resume — a fresh session restores the step-10 checkpoint and trains
      to step 20; its losses must equal the uninterrupted run's bit for bit
-     (every reduction on the path runs in a fixed order);
-  6. serving — on the trained state: infer_all, then two embedding servers
-     (one whose cache holds the whole target table, so every flush is an
-     all-hit fetch through the gather kernel; one at the default 4 MiB, the
-     mixed hit/miss path), each answering 512 requests of 4 ids from 8
-     client threads.  Every answer is held against the store's rows and a
-     plain relu(e) @ w + b; the servers must answer with no retry, no
-     breaker trip and no degraded answer.  Launch counts are reset just
-     before and read just after;
+     (every reduction on the path runs in a fixed order): R-GCN (5), HGT (5b);
+  6. serving — on each trained state, from reset launch counts: infer_all,
+     then an embedding server whose cache holds the whole target table (every
+     flush an all-hit fetch through the gather kernel), answering 512
+     requests of 4 ids from 8 client threads; R-GCN (6) also serves from a
+     second server at the default 4 MiB (the mixed hit/miss path); R-GAT and
+     HGT (6b) must launch stacked_attn_epilogue with no residuals only.
+     Every answer is held against the store's rows and a plain
+     relu(e) @ w + b; the servers must answer with no retry, no breaker
+     trip and no degraded answer;
   7. kernels at the main paths' shapes — each kernel against its plain
-     version at every shape the training and the serving runs launched it
-     with (gather_rows at the rows of the table each fetch read); at the two
-     most launched shapes of each path, the error against the plain
-     version, kernel time (CUDA events over raw launches, inputs rotated
-     through more than the 50 MB L2), the plain version's time, the library
-     call's time where one PyTorch call computes the same function, and the
-     least time the card could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s
-     fp32 without tensor cores); plus the whole backward of the autograd
-     Function (dh + dw + db) at the leaf shape;
+     version at every shape any path launched it with (gather_rows at the
+     rows of the table each fetch read); at the two most launched shapes of
+     each path, the error against the plain version, kernel time (CUDA
+     events over raw launches, inputs rotated through more than the 50 MB
+     L2), the plain version's time, the library call's time where one
+     PyTorch call computes the same function, and the least time the card
+     could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
+     cores); plus the whole backward of the R-GCN autograd Function (dh +
+     dw + db) at the leaf shape;
   8. card vs CPU — the same training session at a small scale on the GPU
-     (kernels) and on the CPU (plain PyTorch): 3-step losses within 1e-5,
-     then every type's infer_all embeddings within atol/rtol 1e-5.
+     (kernels) and on the CPU (plain PyTorch), for R-GCN, R-GAT and HGT:
+     3-step losses within 1e-5, then every type's infer_all embeddings
+     within atol/rtol 1e-5.
 
 The last three lines are the card's name and power limit, one JSON object
 describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -71,6 +82,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 L2_BYTES = 50 << 20
 TOL = dict(atol=1e-5, rtol=1e-5)
+DEVICE = "cuda"  # where phases 3 and 7 put the kernels' inputs
 
 
 class SmokeFailure(RuntimeError):
@@ -311,25 +323,217 @@ def time_backward(shape, device):
 
 
 # --------------------------------------------------------------------------
+# the attention kernels: inputs, plain versions, timing
+# --------------------------------------------------------------------------
+
+# a recorded stacked_attn_epilogue shape: (rb, n, f, d_in, nh, dh, Ue, Uv,
+# Ua, has_eb, has_slope, qv_bcast, with_res); Uv = 0 shares the values with
+# the logits projection, Ua = 0 has no pe/pv transforms
+
+
+def attn_shape(rb, n, f, di, nh, dh, U, variant, with_res):
+    """The recorded form of an R-GAT or HGT epilogue launch."""
+    if variant == "rgat":
+        return (rb, n, f, di, nh, dh, U, 0, 0, 1, 1, 1, int(with_res))
+    return (rb, n, f, di, nh, dh, U, U, U, 0, 0, 0, int(with_res))
+
+
+def attn_inputs(shape, seed, device):
+    """Operands of one epilogue launch at a recorded shape, with shared
+    stack rows (slots 0 and 1 on row 0) and fully masked rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import attn_slots
+
+    rb, n, f, di, nh, dh, Ue, Uv, Ua, has_eb, has_slope, bcast, with_res = shape
+    H = nh * dh
+    r = np.random.default_rng(seed)
+
+    def t(*s, sc=1.0):
+        return torch.from_numpy((r.standard_normal(s) * sc).astype(np.float32)).to(device)
+
+    h = t(rb, n, f, di)
+    mask = r.random((rb, n, f)) > 0.3
+    mask[0, 0] = False
+    mask[-1, n // 2] = False
+    qv = t(rb, 1, H, sc=0.1).expand(rb, n, H) if bcast else t(rb, n, H, sc=0.3)
+    ops = dict(qv=qv, eb=t(rb, n, nh) if has_eb else None, we=t(Ue, di, H, sc=0.1),
+               wv=t(Uv, di, H, sc=0.1) if Uv else None,
+               pe=t(Ua, nh, dh, dh, sc=0.3) if Ua else None,
+               pv=t(Ua, nh, dh, dh, sc=0.3) if Ua else None)
+    slots = [r.integers(0, U, rb) for U in (Ue, Uv or Ue, Ua or 1)]
+    slots[0][: min(rb, 2)] = 0
+    us = attn_slots(*slots, (Ue, Uv or Ue, Ua or 1), rb, device)
+    kw = dict(num_heads=nh, head_dim=dh, scale=float(1 / math.sqrt(dh)) if Ua else 1.0,
+              slope=0.2 if has_slope else None, with_residuals=bool(with_res))
+    return h, torch.from_numpy(mask).to(device), ops, us, kw
+
+
+def check_attn(shape, seed, device) -> float:
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import (
+        attn_epilogue_forward, stacked_attn_epilogue_ref)
+
+    h, mask, ops, us, kw = attn_inputs(shape, seed, device)
+    got = attn_epilogue_forward(h, mask, **ops, us=us, **kw)
+    ref = stacked_attn_epilogue_ref(h, mask, **ops, us=us, **kw)
+    torch.cuda.synchronize()
+    got, ref = (got, ref) if kw["with_residuals"] else ((got,), (ref,))
+    worst = 0.0
+    for name, a, b in zip(("out", "z0", "v0"), got, ref):
+        check(bool(torch.isfinite(a).all()), f"stacked_attn_epilogue {shape}: non-finite {name}")
+        err = (a - b).abs()
+        check(bool((err <= TOL["atol"] + TOL["rtol"] * b.abs()).all()),
+              f"stacked_attn_epilogue {shape}: {name} max abs err {float(err.max()):.3g} "
+              "over tolerance")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    return worst
+
+
+def attn_dh_inputs(shape, seed, device):
+    """(dz, dv, we, wv, us) of a recorded stacked_attn_dh shape (rb, n, f,
+    d_in, H, Ue, Uv); Uv = 0 is the shared (one-product) form."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import attn_slots
+
+    rb, n, f, di, H, Ue, Uv = shape
+    r = np.random.default_rng(seed)
+
+    def t(*s, sc=1.0):
+        return torch.from_numpy((r.standard_normal(s) * sc).astype(np.float32)).to(device)
+
+    dz = t(rb, n, f, H)
+    dv = t(rb, n, f, H) if Uv else None
+    we, wv = t(Ue, di, H, sc=0.1), (t(Uv, di, H, sc=0.1) if Uv else None)
+    slots = [r.integers(0, Ue, rb), r.integers(0, Uv or Ue, rb), np.zeros(rb, np.int64)]
+    slots[0][: min(rb, 2)] = 0
+    return dz, dv, we, wv, attn_slots(*slots, (Ue, Uv or Ue, 1), rb, device)
+
+
+def check_attn_dh(shape, seed, device) -> float:
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import stacked_attn_dh, stacked_attn_dh_ref
+
+    args = attn_dh_inputs(shape, seed, device)
+    got = stacked_attn_dh(*args)
+    ref = stacked_attn_dh_ref(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"stacked_attn_dh {shape}: non-finite output")
+    err = (got - ref).abs()
+    check(bool((err <= TOL["atol"] + TOL["rtol"] * ref.abs()).all()),
+          f"stacked_attn_dh {shape}: max abs err {float(err.max()):.3g} over tolerance")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def attn_work(shape):
+    """(bytes, FLOPs) of one epilogue launch: each input read once (the
+    stacks whole, qv once per slot when broadcast), each output written
+    once; FLOPs as the kernel computes the function (HGT's transforms once
+    per row: q' = pe.qv and (sum_j a_j v0_j).pv)."""
+    rb, n, f, di, nh, dh, Ue, Uv, Ua, has_eb, _, bcast, with_res = shape
+    H = nh * dh
+    pairs = rb * n * f
+    nbytes = 4 * (pairs * di + (rb * H if bcast else rb * n * H) + has_eb * rb * n * nh
+                  + (Ue + Uv) * di * H + 2 * Ua * nh * dh * dh + rb * n * H
+                  + with_res * pairs * H * (2 if Uv else 1)) + pairs + 3 * rb * 4
+    flops = (2 * pairs * di * H * (2 if Uv else 1) + 2 * pairs * H + 6 * pairs * nh
+             + 2 * pairs * H + (4 * rb * n * H * dh if Ua else 0))
+    return nbytes, flops
+
+
+def time_attn(shape, device):
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+    rb, n, f, di, nh, dh = shape[:6]
+    H = nh * dh
+    two, post = bool(shape[7]), bool(shape[8])
+    sets = [attn_inputs(shape, 400 + i, device)
+            for i in range(copies_to_exceed_l2(rb * n * f * di * 4))]
+    _, bo, bc = sra.DEFAULT_BLOCKS["stacked_attn_epilogue"]
+    rows = sra.attn_rows(f, nh, dh, two, post)
+    raw, plain = [], []
+    for h, mask, ops, us, kw in sets:
+        out = torch.empty((rb, n, H), dtype=torch.float32, device=device)
+        z0 = v0 = None
+        if kw["with_residuals"]:
+            z0 = torch.empty((rb, n, f, H), dtype=torch.float32, device=device)
+            v0 = torch.empty_like(z0) if two else None
+        raw.append((h, mask.view(torch.uint8), ops["qv"], ops["eb"], ops["we"], ops["wv"],
+                    ops["pe"], ops["pv"], us, out, z0, v0, nh, dh, kw["scale"], kw["slope"],
+                    rows, bc))
+        plain.append((h, mask, ops["qv"], ops["eb"], ops["we"], ops["wv"], ops["pe"],
+                      ops["pv"], us, nh, dh, kw["scale"], kw["slope"], kw["with_residuals"]))
+    ms = time_ms(sra.launch_attn_epilogue, raw)
+    plain_ms = time_ms(sra.stacked_attn_epilogue_ref, plain)
+    nbytes, flops = attn_work(shape)
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bytes=nbytes, flops=flops)
+
+
+def time_attn_dh(shape, device):
+    """Kernel, plain and library times of stacked_attn_dh.  The library call
+    is one ``torch.bmm`` of dz (with dv beside it along H when the values
+    are not shared) against the slot-gathered, transposed weights; the
+    gather and the concatenation happen before the timed calls."""
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+    rb, n, f, di, H, Ue, Uv = shape
+    sets = [attn_dh_inputs(shape, 500 + i, device)
+            for i in range(copies_to_exceed_l2(rb * n * f * di * 4))]
+    bc = sra.DEFAULT_BLOCKS["stacked_attn_dh"][2]
+    raw, lib = [], []
+    for dz, dv, we, wv, us in sets:
+        raw.append((dz, dv, we, wv, us, torch.empty((rb, n, f, di), dtype=torch.float32,
+                                                     device=device), bc))
+        u = us.long()
+        wt = we[u[0]].transpose(1, 2)
+        a = dz.reshape(rb, n * f, H)
+        if dv is not None:
+            wt = torch.cat([wt, wv[u[1]].transpose(1, 2)], dim=1)
+            a = torch.cat([a, dv.reshape(rb, n * f, H)], dim=2)
+        lib.append((a.contiguous(), wt.contiguous()))
+    ms = time_ms(sra.launch_attn_dh, raw)
+    plain_ms = time_ms(sra.stacked_attn_dh_ref, sets)
+    library_ms = time_ms(torch.bmm, lib)
+    k = 2 if Uv else 1
+    nbytes = 4 * (k * rb * n * f * H + (Ue + Uv) * di * H + rb * n * f * di) + 3 * rb * 4
+    flops = 2 * k * rb * n * f * di * H
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bytes=nbytes, flops=flops)
+
+
+# --------------------------------------------------------------------------
 # the slice
 # --------------------------------------------------------------------------
 
 
-def session_config(scale: float, batch_size: int = 1024):
+def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn"):
     from repro_torch.api import DataConfig, HetaConfig, ModelConfig
 
     return HetaConfig(
         data=DataConfig(dataset="ogbn-mag", scale=scale, fanouts=(4, 3),
                         batch_size=batch_size),
-        model=ModelConfig(),
+        model=ModelConfig(model=model),
     )
 
 
-def build_session(scale: float, device, max_degree: int = 16, batch_size: int = 1024):
+def build_session(scale: float, device, max_degree: int = 16, batch_size: int = 1024,
+                  model: str = "rgcn"):
     from repro_torch.api import Heta
     from repro_torch.serve import bounded_graph
 
-    sess = Heta(session_config(scale, batch_size), device=device)
+    sess = Heta(session_config(scale, batch_size, model), device=device)
     g = bounded_graph(sess.build_graph(), max_degree)
     sess.build_graph(g)
     sess.partition()
@@ -397,18 +601,34 @@ def launch_counts():
             {name: info.shapes.copy() for name, info in KERNELS.items()})
 
 
-def run_training(scale: float, report: dict, ckpt_dir: str):
-    """Phase 4: the training path, from reset launch counts.  Returns the
+# the kernels each model's training fit must launch
+TRAIN_KERNELS = {
+    "rgcn": ("stacked_mean_linear", "stacked_mean_linear_dh", "gather_rows"),
+    # the attention models' q side runs stacked_mean_linear at f = 1
+    "rgat": ("stacked_attn_epilogue", "stacked_attn_dh", "stacked_mean_linear",
+             "stacked_mean_linear_dh"),
+    "hgt": ("stacked_attn_epilogue", "stacked_attn_dh", "stacked_mean_linear",
+            "stacked_mean_linear_dh"),
+}
+
+
+def shape_dict(shapes):
+    return {k: {str(x): c for x, c in v.items()} for k, v in shapes.items()}
+
+
+def run_training(scale: float, report: dict, ckpt_dir, model: str = "rgcn"):
+    """Phase 4/4b: one model's training path, from reset launch counts.
+    Saves a checkpoint at step 10 into ``ckpt_dir`` (if given).  Returns the
     trained session, its graph and the shapes each kernel was launched at."""
     import numpy as np
 
     from repro_torch.kernels.ops import reset_launch_counts
 
     t0 = time.perf_counter()
-    sess, g = build_session(scale, None)
+    sess, g = build_session(scale, None, model=model)
     check(sess.device.type == "cuda", f"session landed on {sess.device}")
     check(sess.plan.learn_feats, "learnable tables are not training")
-    log(f"  graph {g.name}: {g.total_nodes:,} nodes, {g.total_edges:,} edges, "
+    log(f"  [{model}] graph {g.name}: {g.total_nodes:,} nodes, {g.total_edges:,} edges, "
         f"paper features {g.features['paper'].nbytes / 2**20:.1f} MiB; learnable "
         f"{sorted(sess.engine.learnable_types)}; cache {sess.config.cache.cache_mb} MiB "
         f"{dict(sess.engine.allocation.rows)}")
@@ -417,41 +637,48 @@ def run_training(scale: float, report: dict, ckpt_dir: str):
     reset_launch_counts()
     t1 = time.perf_counter()
     sess.fit(steps // 2)
-    sess.save(ckpt_dir)
+    if ckpt_dir is not None:
+        sess.save(ckpt_dir)
     res = sess.fit(steps - steps // 2)
     launches, shapes = launch_counts()
     t_fit = time.perf_counter() - t1
     losses = res["losses"]
     check(len(losses) == steps, f"{len(losses)} losses for {steps} steps")
     check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
-    for name in ("stacked_mean_linear", "stacked_mean_linear_dh", "gather_rows"):
-        check(launches[name] > 0, f"kernel {name} was not launched by fit")
+    for name in TRAIN_KERNELS[model]:
+        check(launches[name] > 0, f"kernel {name} was not launched by the {model} fit")
     # the synthetic labels are uniform random, so the loss of a fresh batch
     # stays near ln(classes) whatever the model learns; what training must
     # lower is the loss of a batch it has trained on: step 0's, re-scored
     first_after, _ = sess.executor.loss_and_metrics(sess, sess.plan, sess.state,
                                                     sess._batch_for_step(0))
     check(first_after < losses[0],
-          f"step 0's batch scores {first_after} after the fit, {losses[0]} before")
+          f"{model}: step 0's batch scores {first_after} after the fit, {losses[0]} before")
     ev = sess.evaluate(num_batches=2)
-    check(bool(np.isfinite(ev["loss"])), f"evaluate gave {ev['loss']}")
+    check(bool(np.isfinite(ev["loss"])), f"{model}: evaluate gave {ev['loss']}")
     n = len(sess.step_times)
-    log(f"  fit: {steps} steps in {t_fit:.3f} s wall; losses {losses[0]:.6f} -> "
+    log(f"  [{model}] fit: {steps} steps in {t_fit:.3f} s wall; losses {losses[0]:.6f} -> "
         f"{losses[-1]:.6f} (ln {g.num_classes} = {math.log(g.num_classes):.6f}); step 0's "
         f"batch re-scored after the fit {first_after:.6f}; evaluate loss {ev['loss']:.6f}")
-    log(f"  median of steps 2..{n - 1}: step {res['step_time_s'] * 1e3:.3f} ms "
+    log(f"  [{model}] median of steps 2..{n - 1}: step {res['step_time_s'] * 1e3:.3f} ms "
         f"(sparse update {res['update_time_s'] * 1e3:.3f} ms), host sample+stage "
         f"{res['host_time_s'] * 1e3:.3f} ms; samples/s {res['samples_per_s']:.1f}")
-    log("  per step (ms) step/update/host: " + "; ".join(
+    log(f"  [{model}] per step (ms) step/update/host: " + "; ".join(
         f"{a * 1e3:.1f}/{b * 1e3:.1f}/{c * 1e3:.1f}" for a, b, c in
         zip(sess.step_times, sess.update_times, sess.host_times)))
-    log("  hit rates " + ", ".join(f"{t}={r:.4f}" for t, r in sorted(res["hit_rates"].items()))
+    log(f"  [{model}] hit rates "
+        + ", ".join(f"{t}={r:.4f}" for t, r in sorted(res["hit_rates"].items()))
         + f"; engine steps {sess.engine.steps}")
-    log(f"  kernel launches by fit: {launches}; all-hit fetches (gather_rows) by type: "
-        f"{dict(all_hit)}")
-    log(f"  stage seconds: " + ", ".join(f"{k}={v:.3f}" for k, v in sess.stage_times.items())
+    log(f"  [{model}] kernel launches by fit: {launches}; all-hit fetches (gather_rows) by "
+        f"type: {dict(all_hit)}")
+    if model != "rgcn":
+        log(f"  [{model}] the q side (stacked_mean_linear at f = 1 and its backward) added "
+            f"{launches['stacked_mean_linear']} and {launches['stacked_mean_linear_dh']} "
+            f"launches; shapes {dict(shapes['stacked_mean_linear'])}")
+    log(f"  [{model}] stage seconds: "
+        + ", ".join(f"{k}={v:.3f}" for k, v in sess.stage_times.items())
         + f" ({time.perf_counter() - t0:.1f} s phase)")
-    report["training"] = dict(
+    report.setdefault("training", {})[model] = dict(
         scale=scale, nodes=g.total_nodes, edges=g.total_edges, steps=steps,
         batch_size=sess.config.data.batch_size, losses=losses, eval_loss=ev["loss"],
         first_batch_after=first_after,
@@ -459,29 +686,29 @@ def run_training(scale: float, report: dict, ckpt_dir: str):
         update_time_s=res["update_time_s"], step_times=list(sess.step_times),
         host_times=list(sess.host_times), update_times=list(sess.update_times),
         hit_rates=res["hit_rates"], engine_steps=dict(sess.engine.steps),
-        all_hit_fetches=dict(all_hit), launches=launches,
-        shapes={k: {str(x): c for x, c in v.items()} for k, v in shapes.items()},
+        all_hit_fetches=dict(all_hit), launches=launches, shapes=shape_dict(shapes),
         stage_times=dict(sess.stage_times))
     return sess, g, shapes
 
 
-def run_resume(scale: float, report: dict, ckpt_dir: str, losses) -> None:
-    """Phase 5: a fresh session restores the mid-run checkpoint and trains
-    to the end; its losses must be the uninterrupted run's, bit for bit."""
-    sess, _ = build_session(scale, None)
+def run_resume(scale: float, report: dict, ckpt_dir: str, losses, model: str = "rgcn"):
+    """Phase 5/5b: a fresh session restores the mid-run checkpoint and
+    trains to the end; its losses must be the uninterrupted run's, bit for
+    bit."""
+    sess, _ = build_session(scale, None, model=model)
     step = sess.restore(ckpt_dir)
     sess.fit(len(losses) - step)
     tail, want = sess.losses, list(losses[step:])
     diff = max(abs(a - b) for a, b in zip(tail, want))
-    log(f"  restored step {step}, trained to {step + len(tail)}: max |loss diff| "
+    log(f"  [{model}] restored step {step}, trained to {step + len(tail)}: max |loss diff| "
         f"{diff:.3g} against the uninterrupted run")
-    check(tail == want, f"resumed losses {tail} differ from {want}")
-    report["resume"] = dict(step=step, losses=tail, max_diff=diff)
+    check(tail == want, f"{model}: resumed losses {tail} differ from {want}")
+    report.setdefault("resume", {})[model] = dict(step=step, losses=tail, max_diff=diff)
 
 
-def run_serving(sess, g, report: dict):
-    """Phase 6: infer_all and two servers on the trained state, from reset
-    launch counts.  Returns the shapes each kernel was launched at."""
+def run_serving(sess, g, report: dict, model: str = "rgcn"):
+    """Phase 6/6b: infer_all and the servers on one trained state, from
+    reset launch counts.  Returns the shapes each kernel was launched at."""
     import numpy as np
     import torch
 
@@ -496,81 +723,94 @@ def run_serving(sess, g, report: dict):
     n_emb = sum(a.shape[0] for a in store.embeddings.values())
     for t, a in store.embeddings.items():
         check(a.shape == (g.num_nodes[t], sess.hgnn_cfg.hidden),
-              f"store[{t}] has shape {a.shape}")
-        check(bool(np.isfinite(a).all()), f"store[{t}] holds non-finite values")
-    check(store.target_type in store.embeddings, "no target-type embeddings")
+              f"{model}: store[{t}] has shape {a.shape}")
+        check(bool(np.isfinite(a).all()), f"{model}: store[{t}] holds non-finite values")
+    check(store.target_type in store.embeddings, f"{model}: no target-type embeddings")
     tm = store.timings
-    log(f"  infer_all: {n_emb:,} embeddings of {len(store.embeddings)} types in "
+    log(f"  [{model}] infer_all: {n_emb:,} embeddings of {len(store.embeddings)} types in "
         f"{t_infer:.3f} s ({t_infer / n_emb * 1e6:.3f} us/node); "
         f"{int(tm['blocks'])} blocks: host gather {tm['host_gather_s']:.3f} s, "
         f"h2d {tm['h2d_s']:.3f} s, compute {tm['compute_s']:.3f} s, "
         f"d2h {tm['d2h_s']:.3f} s")
     full = sess.evaluate(num_batches=2, use_full_graph=True)
-    check(bool(np.isfinite(full["loss"])), f"full-graph evaluate gave {full['loss']}")
+    check(bool(np.isfinite(full["loss"])), f"{model}: full-graph evaluate gave {full['loss']}")
 
     n_target = g.num_nodes[g.target_type]
     full_mb = math.ceil(len(store.embeddings) * n_target * store.hidden * 4 / 2**20) + 1
     with EmbeddingServer(store, cache_mb=full_mb, kernels=sess.config.kernels) as srv:
         check(srv.cache.caches[store.target_type].ids.shape[0] == n_target,
-              "the all-hit server does not cache the whole target table")
-        all_hit = drive_server(f"server cache_mb={full_mb} (all hits)", srv, store,
+              f"{model}: the all-hit server does not cache the whole target table")
+        all_hit = drive_server(f"[{model}] server cache_mb={full_mb} (all hits)", srv, store,
                                n_target, seed=1)
-    check(all_hit["hit_rates"][store.target_type] == 1.0, "all-hit server missed")
-    mixed = drive_server(f"server cache_mb={sess.config.serve.cache_mb} (mixed)",
-                         sess.serve(), store, n_target, seed=2)
-    sess.close_serving()
+    check(all_hit["hit_rates"][store.target_type] == 1.0, f"{model}: all-hit server missed")
+    mixed = None
+    if model == "rgcn":
+        mixed = drive_server(f"[{model}] server cache_mb={sess.config.serve.cache_mb} (mixed)",
+                             sess.serve(), store, n_target, seed=2)
+        sess.close_serving()
     launches, shapes = launch_counts()
-    log(f"  kernel launches by serving: {launches} ({time.perf_counter() - t0:.1f} s)")
-    for name in ("stacked_mean_linear", "gather_rows"):
-        check(launches[name] > 0, f"kernel {name} was not launched by serving")
-    report["serving"] = dict(
+    log(f"  [{model}] kernel launches by serving: {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    agg = "stacked_mean_linear" if model == "rgcn" else "stacked_attn_epilogue"
+    for name in (agg, "gather_rows"):
+        check(launches[name] > 0, f"kernel {name} was not launched by {model} serving")
+    if model != "rgcn":
+        res = [x for x in shapes["stacked_attn_epilogue"] if x[-1]]
+        check(not res, f"{model} serving asked the epilogue for residuals at {res}")
+        check(launches["stacked_attn_dh"] == 0, f"{model} serving ran a backward")
+    report.setdefault("serving", {})[model] = dict(
         target_rows=n_target, embeddings=n_emb, infer_all_s=t_infer,
         infer_us_per_node=t_infer / n_emb * 1e6, timings=dict(tm),
         full_graph_eval_loss=full["loss"], server_all_hit=all_hit, server_mixed=mixed,
-        launches=launches,
-        shapes={k: {str(x): c for x, c in v.items()} for k, v in shapes.items()})
+        launches=launches, shapes=shape_dict(shapes))
     return shapes
 
 
-def run_reference(scale: float, steps: int = 3) -> None:
+def run_reference(scale: float, model: str = "rgcn", steps: int = 3) -> None:
     """Phase 8: the port on the card against the port on the CPU."""
     import numpy as np
 
-    gpu, _ = build_session(scale, None, max_degree=8, batch_size=32)
-    cpu, _ = build_session(scale, "cpu", max_degree=8, batch_size=32)
+    gpu, _ = build_session(scale, None, max_degree=8, batch_size=32, model=model)
+    cpu, _ = build_session(scale, "cpu", max_degree=8, batch_size=32, model=model)
     lg, lc = gpu.fit(steps)["losses"], cpu.fit(steps)["losses"]
     diff = max(abs(a - b) for a, b in zip(lg, lc))
-    log(f"  scale {scale}, batch 32: {steps}-step losses GPU {lg} CPU {lc}, "
+    log(f"  [{model}] scale {scale}, batch 32: {steps}-step losses GPU {lg} CPU {lc}, "
         f"max diff {diff:.3g}")
-    check(diff <= TOL["atol"], f"GPU and CPU losses differ by {diff:.3g}")
+    check(diff <= TOL["atol"], f"{model}: GPU and CPU losses differ by {diff:.3g}")
     a, b = gpu.infer_all(), cpu.infer_all()
-    check(set(a.embeddings) == set(b.embeddings), "types differ between GPU and CPU")
+    check(set(a.embeddings) == set(b.embeddings), f"{model}: types differ between GPU and CPU")
     worst = 0.0
     for t in a.embeddings:
         check(bool(np.allclose(a.embeddings[t], b.embeddings[t], **TOL)),
-              f"GPU and CPU embeddings of {t} differ beyond tolerance")
+              f"{model}: GPU and CPU embeddings of {t} differ beyond tolerance")
         worst = max(worst, float(np.abs(a.embeddings[t] - b.embeddings[t]).max()))
     ids = np.arange(min(64, a.embeddings[a.target_type].shape[0]))
-    check(bool(np.allclose(a.scores(ids), b.scores(ids), **TOL)), "GPU and CPU scores differ")
-    log(f"  trained infer_all: {sum(x.shape[0] for x in a.embeddings.values()):,} "
+    check(bool(np.allclose(a.scores(ids), b.scores(ids), **TOL)),
+          f"{model}: GPU and CPU scores differ")
+    log(f"  [{model}] trained infer_all: {sum(x.shape[0] for x in a.embeddings.values()):,} "
         f"embeddings, max abs diff GPU kernels vs CPU plain {worst:.3g}")
 
 
-def kernel_table(report: dict, train_shapes, serve_shapes, errs: dict, device="cuda"):
-    """Phase 7: every kernel against its plain version at every shape either
+TIMERS = {"stacked_mean_linear": (time_mean_linear, check_mean_linear),
+          "stacked_mean_linear_dh": (time_dh, check_dh),
+          "gather_rows": (time_gather, check_gather),
+          "stacked_attn_epilogue": (time_attn, check_attn),
+          "stacked_attn_dh": (time_attn_dh, check_attn_dh)}
+
+
+def kernel_table(paths: dict, errs: dict, device):
+    """Phase 7: every kernel against its plain version at every shape any
     path launched it with, and timed at each path's two most launched
-    shapes.  Returns the entries of the ``kernels`` line."""
+    shapes.  ``paths`` maps a path's name to the shapes its run launched
+    each kernel at.  Returns the entries of the ``kernels`` line: the main
+    keys hold the first path that launched the kernel (training first) at
+    its most launched shape, ``launches`` the sum over every path's run,
+    and ``paths`` each path's launches and timings."""
     from repro_torch.kernels.ops import KERNELS
 
     entries = []
-    timers = {"stacked_mean_linear": (time_mean_linear, check_mean_linear),
-              "stacked_mean_linear_dh": (time_dh, check_dh),
-              "gather_rows": (time_gather, check_gather)}
-    paths = {"training": train_shapes, "serving": serve_shapes}
     for name, info in KERNELS.items():
-        timer, checker = timers[name]
-        # every shape either path launched (gather_rows: (rows, d, n) of the
-        # table each fetch read) against the plain version
+        timer, checker = TIMERS[name]
         union = collections.Counter()
         for shapes in paths.values():
             union.update(shapes[name])
@@ -579,34 +819,45 @@ def kernel_table(report: dict, train_shapes, serve_shapes, errs: dict, device="c
         log(f"  {name}: max abs err {errs[name]:.3g} over {len(union)} shapes")
         timed = {}
         for path, shapes in paths.items():
+            launched = sum(shapes[name].values())
             # the two most launched shapes of the path; among those, the most work first
             cases = sorted(shapes[name].items(), key=lambda sc: (-sc[1], -math.prod(sc[0])))[:2]
-            timed[path] = []
+            timed[path] = dict(launches=launched, timed=[])
             for shape, count in cases:
                 t = timer(shape, device)
-                timed[path].append(dict(shape=list(shape), count=count, **t))
-                log(f"    {path} {shape} ({count} of {report[path]['launches'][name]} launches): "
+                timed[path]["timed"].append(dict(shape=list(shape), count=count, **t))
+                log(f"    {path} {shape} ({count} of {launched} launches): "
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                     f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}"
                     f" ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']}), "
-                    f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s")
-        top = timed["training"][0]
-        serve = timed["serving"][0] if timed["serving"] else None
+                    f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s, "
+                    f"{t['flops'] / t['ms'] / 1e9:.1f} GFLOP/s")
+        main = next(timed[p]["timed"][0] for p in paths if timed[p]["timed"])
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         entries.append({
             "name": name, "route": info.route, "source": info.source,
-            "replaces": info.replaces, "launches": report["training"]["launches"][name],
-            "max_abs_err": errs[name], "max_err": errs[name], "shapes_checked": len(union),
-            "shape": top["shape"], **{k: top[k] for k in keys},
-            "serving": None if serve is None else {
-                "launches": report["serving"]["launches"][name], "shape": serve["shape"],
-                **{k: serve[k] for k in keys}},
-            "timed": timed,
+            "replaces": info.replaces,
+            "launches": sum(t["launches"] for t in timed.values()),
+            "max_abs_err": errs[name], "shapes_checked": len(union),
+            "shape": main["shape"], **{k: main[k] for k in keys},
+            "paths": timed,
         })
     return entries
 
 
 # --------------------------------------------------------------------------
+
+
+# phase 3's ragged shapes: (rb, n, f, d_in, d_out, U) of the mean-linear pair
+RAGGED = [(5, 17, 4, 37, 24, 3), (1, 1, 1, 1, 1, 1), (8, 130, 3, 129, 65, 8),
+          (12, 64, 25, 128, 64, 6), (3, 200, 7, 789, 349, 2)]
+# and (rb, n, f, d_in, nh, dh, U) of the attention pair: f in {1, 3, 16, 64,
+# 100}, ragged n and d_in, H = 72 (two column passes), the training leaf and
+# the serving block
+ATTN_RAGGED = [(5, 19, 4, 23, 4, 8, 3), (4, 33, 1, 789, 4, 16, 3), (3, 130, 3, 129, 4, 16, 2),
+               (2, 7, 16, 37, 2, 8, 2), (3, 45, 64, 100, 4, 16, 2), (2, 9, 100, 33, 4, 16, 2),
+               (3, 50, 5, 70, 3, 24, 2), (6, 4096, 3, 128, 4, 16, 6),
+               (2, 1024, 16, 128, 4, 16, 2)]
 
 
 def main(argv=None) -> int:
@@ -635,6 +886,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report: dict = {}
+    t_start = time.perf_counter()
     from repro_torch.kernels import build
 
     log("== 1 environment")
@@ -654,51 +906,78 @@ def main(argv=None) -> int:
     log(f"  built {sorted(secs)} in {wall:.2f} s wall ({secs})")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
     report["build_s"] = wall
 
-    log("== 3 kernels vs plain (ragged shapes and the training path's)")
-    ragged = [(5, 17, 4, 37, 24, 3), (1, 1, 1, 1, 1, 1), (8, 130, 3, 129, 65, 8),
-              (12, 64, 25, 128, 64, 6), (3, 200, 7, 789, 349, 2)]
-    errs = {"stacked_mean_linear": 0.0, "stacked_mean_linear_dh": 0.0, "gather_rows": 0.0}
-    for i, shape in enumerate(ragged):
+    log("== 3 kernels vs plain (ragged shapes and the training paths')")
+    errs = {name: 0.0 for name in TIMERS}
+    for i, shape in enumerate(RAGGED):
         errs["stacked_mean_linear"] = max(errs["stacked_mean_linear"],
-                                          check_mean_linear(shape, i, "cuda"))
+                                          check_mean_linear(shape, i, DEVICE))
     # + the two levels of the training path at batch 1024 (leaf: d_in = d_pad)
-    for i, shape in enumerate(ragged + [(3, 1024, 4, 64, 64, 3), (6, 4096, 3, 128, 64, 6)]):
+    for i, shape in enumerate(RAGGED + [(3, 1024, 4, 64, 64, 3), (6, 4096, 3, 128, 64, 6)]):
         errs["stacked_mean_linear_dh"] = max(errs["stacked_mean_linear_dh"],
-                                             check_dh(shape, i, "cuda"))
+                                             check_dh(shape, i, DEVICE))
     for i, (shape, dt) in enumerate([((50, 37, 9), "int32"), ((5, 1, 3), "int64"),
                                      ((1000, 64, 256), "int64")]):
-        check_gather(shape, i, "cuda", dt)
+        check_gather(shape, i, DEVICE, dt)
+    for i, (rb, n, f, di, nh, dh, U) in enumerate(ATTN_RAGGED):
+        for variant in ("rgat", "hgt"):
+            for with_res in (False, True):
+                shape = attn_shape(rb, n, f, di, nh, dh, U, variant, with_res)
+                errs["stacked_attn_epilogue"] = max(errs["stacked_attn_epilogue"],
+                                                    check_attn(shape, i, DEVICE))
+            dshape = (rb, n, f, di, nh * dh, U, 0 if variant == "rgat" else U)
+            errs["stacked_attn_dh"] = max(errs["stacked_attn_dh"],
+                                          check_attn_dh(dshape, i, DEVICE))
     log(f"  ok; max abs err {errs}")
 
+    paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
-        log(f"== 4 training (ogbn-mag scale {args.scale}, batch 1024)")
-        sess, g, train_shapes = run_training(args.scale, report, ckpt_dir)
-        log("== 5 resume from the step-10 checkpoint")
-        run_resume(args.scale, report, ckpt_dir, report["training"]["losses"])
-    log("== 6 serving the trained state")
-    serve_shapes = run_serving(sess, g, report)
+        log(f"== 4 R-GCN training (ogbn-mag scale {args.scale}, batch 1024)")
+        sess, g, paths["rgcn training"] = run_training(args.scale, report, ckpt_dir)
+        log("== 5 R-GCN resume from the step-10 checkpoint")
+        run_resume(args.scale, report, ckpt_dir, report["training"]["rgcn"]["losses"])
+    log("== 6 R-GCN serving the trained state")
+    paths["rgcn serving"] = run_serving(sess, g, report)
     del sess
 
+    for model in ("rgat", "hgt"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+            log(f"== 4b {model} training (ogbn-mag scale {args.scale}, batch 1024)")
+            sess, g, paths[f"{model} training"] = run_training(
+                args.scale, report, ckpt_dir if model == "hgt" else None, model)
+            if model == "hgt":
+                log("== 5b hgt resume from the step-10 checkpoint")
+                run_resume(args.scale, report, ckpt_dir, report["training"]["hgt"]["losses"],
+                           model)
+        log(f"== 6b {model} serving the trained state")
+        paths[f"{model} serving"] = run_serving(sess, g, report, model)
+        del sess
+    order = [f"{m} {p}" for p in ("training", "serving") for m in ("rgcn", "rgat", "hgt")]
+    paths = {p: paths[p] for p in order}
+
     log("== 7 kernels at the shapes the training and serving paths launched them with")
-    report["kernels"] = kernel_table(report, train_shapes, serve_shapes, errs)
-    leaf = max(train_shapes["stacked_mean_linear_dh"], key=lambda x: x[0] * x[1] * x[2] * x[3])
-    back_ms = time_backward(leaf, "cuda")
+    report["kernels"] = kernel_table(paths, errs, DEVICE)
+    leaf = max(paths["rgcn training"]["stacked_mean_linear_dh"],
+               key=lambda x: x[0] * x[1] * x[2] * x[3])
+    back_ms = time_backward(leaf, DEVICE)
     log(f"  autograd backward of stacked_mean_linear (dh + dw + db) at {leaf}: "
         f"{back_ms:.4f} ms")
     report["backward_ms"] = dict(shape=list(leaf), ms=back_ms)
 
     log(f"== 8 card vs CPU (scale {args.ref_scale}, batch 32)")
-    run_reference(args.ref_scale)
+    for model in ("rgcn", "rgat", "hgt"):
+        run_reference(args.ref_scale, model)
+    report["wall_s"] = time.perf_counter() - t_start
+    log(f"  whole run {report['wall_s']:.1f} s")
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1, default=str))
     log(card_line())
-    log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "timed"}
+    log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "paths"}
                                 for e in report["kernels"]]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -271,12 +271,17 @@ class KernelConfig:
     kernel on a CUDA tensor (or raises) and runs its plain PyTorch version
     on a CPU tensor.  There is no interpreter, so ``interpret=True`` raises.
 
-    ``fuse_epilogue`` and ``relation_agg`` select attention-family and
-    dict-form paths that belong to later slices of the port.  The explicit
-    ``block_n`` / ``block_out`` / ``block_in`` overrides are kernel launch
-    parameters beating the CUDA defaults
-    (``repro_torch.kernels.ops.resolve_blocks``); there is no CUDA tuning
-    table yet, so ``autotune=True`` raises.
+    ``fuse_epilogue`` (R-GAT, HGT) selects the fused attention kernels
+    (``stacked_attn_epilogue`` and its backward) when on; off, the
+    ``attn_parts`` factoring runs plain PyTorch on the CPU and raises on the
+    GPU, where its softmax + combine kernel is a later slice of the port, as
+    is the dict-form path ``relation_agg`` selects.  The explicit
+    ``block_n`` / ``block_out`` / ``block_in`` overrides are launch
+    parameters of the ``stacked_mean_linear`` forward (R-GCN's aggregation,
+    the attention models' query side) beating its CUDA defaults
+    (``repro_torch.kernels.ops.resolve_blocks``); the other kernels launch at
+    their defaults.  There is no CUDA tuning table yet, so
+    ``autotune=True`` raises.
     """
 
     enabled: bool = True

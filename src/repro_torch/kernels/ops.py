@@ -49,6 +49,12 @@ DEFAULT_BLOCKS: Dict[str, Tuple[int, int, int]] = {
     # block_out is the d_out chunk of the backward's inner loop; block_in
     # must divide the kernel's 256 threads
     "stacked_mean_linear_dh": (32, 64, 64),
+    # block_n is the budget of (row, neighbour) pairs per block: a block
+    # holds max(1, block_n // f) destination rows; block_out is the fixed
+    # 64-column pass of the projection; block_in the d_in chunk
+    "stacked_attn_epilogue": (64, 64, 32),
+    # (pairs, d_in columns, H chunk) of one block of dh
+    "stacked_attn_dh": (64, 64, 32),
 }
 
 

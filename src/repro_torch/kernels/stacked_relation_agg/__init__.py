@@ -1,15 +1,25 @@
 """Stacked relation-aggregation family: one call per metatree level runs
 AGG_r for every branch slot, weights read straight from the ``[U, ...]``
-parameter stacks (``csrc/stacked_mean_linear.cu`` for R-GCN, and its
-backward ``csrc/stacked_mean_linear_dh.cu``)."""
+parameter stacks (``csrc/stacked_mean_linear.cu`` for R-GCN and its
+backward ``csrc/stacked_mean_linear_dh.cu``; ``csrc/stacked_attn_epilogue.cu``
+for R-GAT and HGT and its backward ``csrc/stacked_attn_dh.cu``)."""
 
 from repro_torch.kernels.stacked_relation_agg.ops import (  # noqa: F401
+    FanoutTooWideError,
+    attn_epilogue_forward,
+    attn_slots,
+    segment_sum,
     stacked_agg,
     stacked_agg_ref,
+    stacked_attn_dh,
+    stacked_attn_dh_ref,
+    stacked_attn_epilogue,
+    stacked_attn_epilogue_ref,
     stacked_mean_linear,
     stacked_mean_linear_dh,
     stacked_mean_linear_dh_ref,
     stacked_mean_linear_ref,
-    segment_sum,
+    stacked_softmax_combine_ref,
     stage_slot_u,
+    take_slots,
 )

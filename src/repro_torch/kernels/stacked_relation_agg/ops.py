@@ -1,10 +1,20 @@
-"""Public op: stacked relation aggregation — dispatch, the mean_linear kernels
-and their autograd seam.
+"""Public op: stacked relation aggregation — dispatch, the mean_linear and
+attention kernels and their autograd seams.
 
 :func:`stacked_agg` runs one level's AGG_r for every branch slot.  With the
-``kernels.stacked_agg`` toggle on and a module declaring
-``fused == "mean_linear"`` (R-GCN), it calls :func:`stacked_mean_linear`;
-anything else goes to the gather-then-vmap oracle
+``kernels.stacked_agg`` toggle on:
+
+  * ``fused == "mean_linear"`` (R-GCN) -> :func:`stacked_mean_linear`;
+  * ``fused == "softmax_combine"`` (R-GAT, HGT) with ``kernels.fuse_epilogue``
+    on (the default) -> the module's :meth:`attn_epilogue` operands, the
+    query-side projection through :func:`stacked_mean_linear` at f = 1
+    (:func:`_epilogue_linear`), then :func:`stacked_attn_epilogue`;
+  * ``fused == "softmax_combine"`` with ``fuse_epilogue`` off -> the
+    ``attn_parts`` factoring: plain PyTorch on CPU tensors; on CUDA tensors
+    it raises, since its masked softmax + combine is kernel 3
+    (``stacked_softmax_combine_pallas``), which a later slice ports;
+
+and anything else, or the toggle off, goes to the gather-then-vmap oracle
 (:func:`~repro_torch.kernels.stacked_relation_agg.ref.stacked_agg_ref`),
 which autograd differentiates as it is.
 
@@ -28,17 +38,33 @@ sum over slots (:func:`segment_sum`), not ``index_add_``: on CUDA
 then not repeat the uninterrupted one bit for bit.  The one-hot products are
 exact (by 1 or 0), so the only difference from the reference's
 ``segment_sum`` is the order of a sum over at most rb terms.
+
+:func:`stacked_attn_epilogue` runs through :class:`_StackedAttnEpilogue`
+(the reference's ``_stacked_ae`` custom VJP, ``ops.py:273-448``):
+
+  * forward — the kernel ``csrc/stacked_attn_epilogue.cu`` (plain version
+    :func:`stacked_attn_epilogue_ref` on the CPU), writing the projections
+    ``z0``/``v0`` as residuals only when a gradient is needed;
+  * backward — the closed form of the reference's ``_ae_vjp_bwd`` in torch
+    ops from the residuals, ``dh`` through :func:`stacked_attn_dh`
+    (``csrc/stacked_attn_dh.cu``), the projection and transform gradients
+    summed into stack form with :func:`segment_sum`.  The small per-slot
+    leaves (R-GAT's ``a_src``/``a_dst``/``b``) are gathered with
+    :func:`take_slots`, whose backward is the same deterministic slot sum.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.relmod import leaky_relu, masked_softmax
 from repro_torch.kernels.ops import (
+    DEFAULT_BLOCKS,
     check_launch,
     cuda_stream,
     kernel_choice,
@@ -58,8 +84,22 @@ __all__ = [
     "stage_slot_u",
     "launch_kernel",
     "launch_dh_kernel",
+    "stacked_attn_epilogue",
+    "attn_epilogue_forward",
+    "stacked_attn_epilogue_ref",
+    "stacked_attn_dh",
+    "stacked_attn_dh_ref",
+    "stacked_softmax_combine_ref",
+    "attn_slots",
+    "attn_rows",
+    "take_slots",
+    "launch_attn_epilogue",
+    "launch_attn_dh",
+    "FanoutTooWideError",
     "INFO",
     "INFO_DH",
+    "INFO_AE",
+    "INFO_ADH",
 ]
 
 INFO = register_kernel(
@@ -72,10 +112,26 @@ INFO_DH = register_kernel(
     source="src/repro_torch/kernels/csrc/stacked_mean_linear_dh.cu",
     replaces="src/repro/kernels/stacked_relation_agg/kernel.py:167",
 )
+INFO_AE = register_kernel(
+    "stacked_attn_epilogue",
+    source="src/repro_torch/kernels/csrc/stacked_attn_epilogue.cu",
+    replaces="src/repro/kernels/stacked_relation_agg/kernel.py:336",
+)
+INFO_ADH = register_kernel(
+    "stacked_attn_dh",
+    source="src/repro_torch/kernels/csrc/stacked_attn_dh.cu",
+    replaces="src/repro/kernels/stacked_relation_agg/kernel.py:452",
+)
 _FN = None
 _DH_FN = None
+_AE_FN = None
+_ADH_FN = None
 _THREADS, _MAX_ACC = 256, 16  # must match csrc/stacked_mean_linear.cu
 _DH_MAX_ROWS = 16  # must match csrc/stacked_mean_linear_dh.cu (kMaxRows)
+# must match csrc/stacked_attn_epilogue.cu and csrc/stacked_attn_dh.cu:
+# the fixed 64 x 64 tiles, the largest d_in / H chunk, and the opt-in
+# shared memory of one block on sm_90
+_ATTN_TILE, _ATTN_MAX_CHUNK, _SMEM_LIMIT = 64, 64, 232448
 
 Blocks = Tuple[int, int, int]
 
@@ -386,6 +442,445 @@ def stacked_mean_linear(
     return _StackedMeanLinear.apply(h, mask, w, b, slots, blocks)
 
 
+# --------------------------------------------------------------------------
+# the attention epilogue: slots, plain versions, launches, autograd seam
+# --------------------------------------------------------------------------
+
+
+class FanoutTooWideError(ValueError):
+    """One destination row's f neighbours do not fit the shared memory of
+    one block of ``csrc/stacked_attn_epilogue.cu`` (see its source note)."""
+
+
+class _TakeSlots(torch.autograd.Function):
+    """``stack[u]`` whose backward sums the rows' gradients back with the
+    deterministic :func:`segment_sum` (not the atomics of ``index_put_``)."""
+
+    @staticmethod
+    def forward(ctx, stack, u):
+        ctx.save_for_backward(u)
+        ctx.rows = stack.shape[0]
+        return stack.index_select(0, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        return segment_sum(g, u, ctx.rows), None
+
+
+def take_slots(stack: torch.Tensor, slot_u) -> torch.Tensor:
+    """The per-slot rows ``stack[slot_u]`` of a small leaf, differentiable
+    with a deterministic backward (``slot_u`` as for :func:`stacked_mean_linear`)."""
+    return _TakeSlots.apply(stack, _slot_index(slot_u, stack.shape[0], stack.device))
+
+
+def attn_slots(ue, uv, ua, rows: Tuple[int, int, int], rb: int, device) -> torch.Tensor:
+    """The ``[3, rb]`` int32 slot rows ``(ue, uv, ua)`` of an attention
+    launch on ``device``: host arrays are range-checked against ``rows``,
+    staged tensors (:func:`stage_slot_u`) are taken as they are."""
+    device = torch.device(device)
+    return torch.stack([_slots_for(u, U, rb, device, "stacked_attn_epilogue")
+                        for u, U in zip((ue, uv, ua), rows)])
+
+
+def attn_rows(f: int, num_heads: int, head_dim: int, two: bool, post: bool) -> int:
+    """Destination rows per block of the epilogue kernel: ``block_n // f``
+    (at least 1), shrunk until the block's shared memory fits; raises
+    :class:`FanoutTooWideError` when not even one row fits.  ``two``: the
+    values have their own projection; ``post``: pe/pv transforms."""
+    bn, _, bc = DEFAULT_BLOCKS["stacked_attn_epilogue"]
+    H, k = num_heads * head_dim, 2 if two else 1
+    fixed = _ATTN_TILE * (bc + 1) + bc * _ATTN_TILE * k
+    per_row = f * (H * k + num_heads) + H * (2 if post else 1)
+    fit = (_SMEM_LIMIT // 4 - fixed) // per_row
+    if fit < 1:
+        raise FanoutTooWideError(
+            f"stacked_attn_epilogue: a row of fanout {f} at {num_heads} heads x "
+            f"{head_dim} needs {4 * (fixed + per_row)} bytes of shared memory, "
+            f"over the {_SMEM_LIMIT} one block can hold")
+    return max(1, min(bn // f, fit))
+
+
+def stacked_attn_epilogue_ref(h, mask, qv, eb, we, wv, pe, pv, us, num_heads: int,
+                              head_dim: int, scale: float = 1.0, slope=None,
+                              with_residuals: bool = False):
+    """The plain PyTorch version of the fused attention AGG_r (the
+    reference's ``_attn_epilogue_kernel``, transforms applied per
+    neighbour).  Returns ``out`` ``[rb, n, H]``, or ``(out, z0, v0)`` with
+    residuals (``v0`` is ``z0`` when ``wv`` is None)."""
+    rb, n, f, d_in = h.shape
+    nh, dh = num_heads, head_dim
+    u = us.to(device=h.device, dtype=torch.long)
+    hf = h.reshape(rb, n * f, d_in)
+    z0 = torch.bmm(hf, we[u[0]]).reshape(rb, n, f, nh * dh)
+    v0 = z0 if wv is None else torch.bmm(hf, wv[u[1]]).reshape(rb, n, f, nh * dh)
+    zt = z0.reshape(rb, n, f, nh, dh)
+    vt = v0.reshape(rb, n, f, nh, dh)
+    if pe is not None:
+        zt = torch.einsum("rnfhd,rhde->rnfhe", zt, pe[u[2]])
+        vt = torch.einsum("rnfhd,rhde->rnfhe", vt, pv[u[2]])
+    e = torch.einsum("rnfhe,rnhe->rnfh", zt, qv.reshape(rb, n, nh, dh)) * scale
+    if eb is not None:
+        e = e + eb[:, :, None, :]
+    if slope is not None:
+        e = leaky_relu(e, slope)
+    alpha = masked_softmax(e, mask.bool()[..., None], axis=2)
+    out = torch.einsum("rnfh,rnfhd->rnhd", alpha, vt).reshape(rb, n, nh * dh)
+    return (out, z0, v0) if with_residuals else out
+
+
+def stacked_attn_dh_ref(dz, dv, we, wv, us) -> torch.Tensor:
+    """The plain PyTorch version of the attention backward into h:
+    ``dz @ we[us[0]]^T (+ dv @ wv[us[1]]^T)`` -> ``[rb, n, f, d_in]``."""
+    rb, n, f, H = dz.shape
+    u = us.to(device=dz.device, dtype=torch.long)
+    dh = torch.bmm(dz.reshape(rb, n * f, H), we[u[0]].transpose(1, 2))
+    if dv is not None:
+        dh = dh + torch.bmm(dv.reshape(rb, n * f, H), wv[u[1]].transpose(1, 2))
+    return dh.reshape(rb, n, f, we.shape[1])
+
+
+def stacked_softmax_combine_ref(e, mask, v) -> torch.Tensor:
+    """The plain version of kernel 3 (``stacked_softmax_combine_pallas``,
+    not ported yet): masked softmax over f of ``e`` ``[rb, n, f, nh]``, then
+    the head-wise combine with ``v`` ``[rb, n, f, nh, dh]``."""
+    rb, n, f, nh, dh = v.shape
+    alpha = masked_softmax(e, mask.bool()[..., None], axis=2)
+    return torch.einsum("rnfh,rnfhd->rnhd", alpha, v).reshape(rb, n, nh * dh)
+
+
+def _ae_kernel():
+    global _AE_FN
+    if _AE_FN is None:
+        from repro_torch.kernels.build import load
+
+        fn = load("stacked_attn_epilogue").stacked_attn_epilogue
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
+                       + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _AE_FN = fn
+    return _AE_FN
+
+
+def _adh_kernel():
+    global _ADH_FN
+    if _ADH_FN is None:
+        from repro_torch.kernels.build import load
+
+        fn = load("stacked_attn_dh").stacked_attn_dh
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5
+                       + [ctypes.c_int] + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _ADH_FN = fn
+    return _ADH_FN
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0, v0,
+                         num_heads, head_dim, scale, slope, rows, block_in) -> None:
+    """One raw epilogue launch on operands already checked and on ``h``'s
+    device (outputs allocated; ``z0``/``v0`` None without residuals).  Not
+    counted: production calls go through :func:`attn_epilogue_forward`."""
+    rb, n, f, d_in = h.shape
+    with torch.cuda.device(h.device):
+        status = _ae_kernel()(
+            h.data_ptr(), mask_u8.data_ptr(), qv.data_ptr(), qv.stride(0), qv.stride(1),
+            _ptr(eb), we.data_ptr(), _ptr(wv), _ptr(pe), _ptr(pv), us.data_ptr(),
+            out.data_ptr(), _ptr(z0), _ptr(v0), rb, n, f, d_in, num_heads, head_dim,
+            float(scale), 0.0 if slope is None else float(slope), int(slope is not None),
+            rows, block_in, cuda_stream(h.device))
+    check_launch(status, "stacked_attn_epilogue")
+
+
+def launch_attn_dh(dz, dv, we, wv, us, dh, block_in) -> None:
+    """One raw ``dh`` launch on operands already checked and on ``dz``'s
+    device (``dh`` allocated).  Not counted, like :func:`launch_attn_epilogue`."""
+    rb, n, f, H = dz.shape
+    with torch.cuda.device(dz.device):
+        status = _adh_kernel()(dz.data_ptr(), _ptr(dv), we.data_ptr(), _ptr(wv),
+                               us.data_ptr(), dh.data_ptr(), rb, n, f, we.shape[1], H,
+                               block_in, cuda_stream(dz.device))
+    check_launch(status, "stacked_attn_dh")
+
+
+def _check_us(op: str, us, rb: int, device) -> None:
+    if not torch.is_tensor(us) or us.shape != (3, rb) or us.dtype != torch.int32 \
+            or us.device != device:
+        raise ValueError(f"{op}: us must be the [3, {rb}] int32 tensor of attn_slots on "
+                         f"{device}")
+
+
+def attn_epilogue_forward(h, mask, qv, eb, we, wv, pe, pv, us, *, num_heads: int,
+                          head_dim: int, scale: float = 1.0, slope=None,
+                          with_residuals: bool = False):
+    """The fused attention AGG_r on stacked operands (see
+    :func:`stacked_attn_epilogue_ref` for the function and the return).
+
+    CUDA tensors launch ``csrc/stacked_attn_epilogue.cu`` (raising on what it
+    does not take); CPU tensors run the plain version.  ``us`` comes from
+    :func:`attn_slots`.  ``qv`` may have any slot and node strides (0 for a
+    per-slot vector) with unit stride along H."""
+    op = "stacked_attn_epilogue"
+    nh, dh = num_heads, head_dim
+    H = nh * dh
+    if h.dim() != 4:
+        raise ValueError(f"{op}: h must be [rb, n, f, d_in], got {tuple(h.shape)}")
+    rb, n, f, d_in = h.shape
+    post = pe is not None
+    if (mask.shape != (rb, n, f) or qv.shape != (rb, n, H) or we.dim() != 3
+            or we.shape[1:] != (d_in, H)
+            or (wv is not None and (wv.dim() != 3 or wv.shape[1:] != (d_in, H)))
+            or (eb is not None and eb.shape != (rb, n, nh))
+            or post != (pv is not None)
+            or (post and (pe.dim() != 4 or pe.shape[1:] != (nh, dh, dh)
+                          or pv.shape != pe.shape))):
+        raise ValueError(
+            f"{op} shapes: h {tuple(h.shape)}, mask {tuple(mask.shape)}, qv "
+            f"{tuple(qv.shape)}, we {tuple(we.shape)}, wv "
+            f"{None if wv is None else tuple(wv.shape)}, eb "
+            f"{None if eb is None else tuple(eb.shape)}, pe "
+            f"{None if pe is None else tuple(pe.shape)}, pv "
+            f"{None if pv is None else tuple(pv.shape)} at {nh} heads x {dh}")
+    _check_us(op, us, rb, h.device)
+    if h.device.type == "cpu":
+        return stacked_attn_epilogue_ref(h, mask, qv, eb, we, wv, pe, pv, us, nh, dh,
+                                         scale, slope, with_residuals)
+    if h.device.type != "cuda":
+        raise ValueError(f"{op}: unsupported device {h.device}")
+    named = [("h", h), ("mask", mask), ("we", we)] + [
+        (k, t) for k, t in (("eb", eb), ("wv", wv), ("pe", pe), ("pv", pv)) if t is not None]
+    mask_u8 = _cuda_operands(op, h.device, named, ("h", "we", "eb", "wv", "pe", "pv"), mask)
+    if qv.device != h.device or qv.dtype != torch.float32 or qv.stride(2) != 1:
+        raise ValueError(f"{op}: qv must be float32 on {h.device} with unit stride along "
+                         f"H, got {qv.dtype} on {qv.device}, strides {qv.stride()}")
+    bn, bo, bc = DEFAULT_BLOCKS[op]
+    if bo != _ATTN_TILE or not 1 <= bc <= _ATTN_MAX_CHUNK:
+        raise ValueError(f"{op}: blocks {(bn, bo, bc)}: block_out must be "
+                         f"{_ATTN_TILE} and block_in in [1, {_ATTN_MAX_CHUNK}]")
+    rows = attn_rows(f, nh, dh, wv is not None, post)
+    if rb > 65535:
+        raise ValueError(f"{op}: {rb} slots exceed the grid's 65535")
+    out = torch.empty((rb, n, H), dtype=torch.float32, device=h.device)
+    z0 = v0 = None
+    if with_residuals:
+        z0 = torch.empty((rb, n, f, H), dtype=torch.float32, device=h.device)
+        v0 = z0 if wv is None else torch.empty_like(z0)
+    if min(rb, n, H) == 0:
+        return (out, z0, v0) if with_residuals else out
+    if f == 0 or d_in == 0:
+        raise ValueError(f"{op}: f = {f} and d_in = {d_in} must be positive")
+    launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0,
+                         None if wv is None else v0, nh, dh, scale, slope, rows, bc)
+    INFO_AE.record((rb, n, f, d_in, nh, dh, we.shape[0],
+                    0 if wv is None else wv.shape[0], pe.shape[0] if post else 0,
+                    eb is not None, slope is not None, qv.stride(1) == 0,
+                    with_residuals))
+    return (out, z0, v0) if with_residuals else out
+
+
+def stacked_attn_dh(dz, dv, we, wv, us) -> torch.Tensor:
+    """``dh = dz @ we[us[0]]^T (+ dv @ wv[us[1]]^T)`` -> ``[rb, n, f, d_in]``:
+    the attention backward into h.
+
+    CUDA tensors launch ``csrc/stacked_attn_dh.cu`` (raising on what it does
+    not take); CPU tensors run :func:`stacked_attn_dh_ref`."""
+    op = "stacked_attn_dh"
+    if (dz.dim() != 4 or we.dim() != 3 or we.shape[2] != dz.shape[3]
+            or (dv is None) != (wv is None)
+            or (dv is not None and (dv.shape != dz.shape or wv.dim() != 3
+                                    or wv.shape[1:] != we.shape[1:]))):
+        raise ValueError(
+            f"{op} shapes: dz {tuple(dz.shape)}, dv "
+            f"{None if dv is None else tuple(dv.shape)}, we {tuple(we.shape)}, wv "
+            f"{None if wv is None else tuple(wv.shape)}")
+    rb, n, f, H = dz.shape
+    d_in = we.shape[1]
+    _check_us(op, us, rb, dz.device)
+    if dz.device.type == "cpu":
+        return stacked_attn_dh_ref(dz, dv, we, wv, us)
+    if dz.device.type != "cuda":
+        raise ValueError(f"{op}: unsupported device {dz.device}")
+    named = [("dz", dz), ("we", we)] + ([] if dv is None else [("dv", dv), ("wv", wv)])
+    for name, t in named:
+        if t.device != dz.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{op} kernel takes contiguous float32 {name} on {dz.device}, "
+                             f"got {t.dtype} on {t.device}")
+    bn, bo, bc = DEFAULT_BLOCKS[op]
+    if (bn, bo) != (_ATTN_TILE, _ATTN_TILE) or not 1 <= bc <= _ATTN_MAX_CHUNK:
+        raise ValueError(f"{op}: blocks {(bn, bo, bc)}: block_n and block_out must be "
+                         f"{_ATTN_TILE}, block_in in [1, {_ATTN_MAX_CHUNK}]")
+    if rb > 65535 or -(-d_in // _ATTN_TILE) > 65535:
+        raise ValueError(f"{op}: grid of {rb} slots x {-(-d_in // _ATTN_TILE)} column "
+                         f"tiles exceeds 65535")
+    dh = torch.empty((rb, n, f, d_in), dtype=torch.float32, device=dz.device)
+    if min(rb, n, f, d_in) == 0:
+        return dh
+    if H == 0:
+        return dh.zero_()
+    launch_attn_dh(dz, dv, we, wv, us, dh, bc)
+    INFO_ADH.record((rb, n, f, d_in, H, we.shape[0], 0 if wv is None else wv.shape[0]))
+    return dh
+
+
+@dataclasses.dataclass(frozen=True)
+class _AECfg:
+    num_heads: int
+    head_dim: int
+    scale: float
+    slope: Optional[float]
+
+
+class _StackedAttnEpilogue(torch.autograd.Function):
+    """Epilogue kernel forward with residuals + the closed-form backward of
+    the reference's ``_ae_vjp_bwd`` (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, h, mask, qv, eb, we, wv, pe, pv, us, cfg: _AECfg):
+        out, z0, v0 = attn_epilogue_forward(
+            h, mask, qv, eb, we, wv, pe, pv, us, num_heads=cfg.num_heads,
+            head_dim=cfg.head_dim, scale=cfg.scale, slope=cfg.slope, with_residuals=True)
+        ctx.save_for_backward(h, mask, qv, eb, we, wv, pe, pv, us, z0, v0)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, mask, qv, eb, we, wv, pe, pv, us, z0, v0 = ctx.saved_tensors
+        cfg = ctx.cfg
+        need = ctx.needs_input_grad
+        rb, n, f, d_in = h.shape
+        nh, dh = cfg.num_heads, cfg.head_dim
+        H = nh * dh
+        u = us.to(torch.long)
+        z4 = z0.reshape(rb, n, f, nh, dh)
+        v4 = v0.reshape(rb, n, f, nh, dh)
+        if pe is not None:
+            peg, pvg = pe.index_select(0, u[2]), pv.index_select(0, u[2])
+            zt = torch.einsum("rnfhd,rhde->rnfhe", z4, peg)
+            vt = torch.einsum("rnfhd,rhde->rnfhe", v4, pvg)
+        else:
+            zt, vt = z4, v4
+        qv4 = qv.reshape(rb, n, nh, dh)
+        e0 = torch.einsum("rnfhe,rnhe->rnfh", zt, qv4) * cfg.scale
+        if eb is not None:
+            e0 = e0 + eb[:, :, None, :]
+        e = e0 if cfg.slope is None else leaky_relu(e0, cfg.slope)
+        alpha = masked_softmax(e, mask.bool()[..., None], axis=2)
+        gh = g.reshape(rb, n, nh, dh)
+        # closed-form softmax Jacobian
+        dalpha = torch.einsum("rnfhd,rnhd->rnfh", vt, gh)
+        de = alpha * (dalpha - (alpha * dalpha).sum(dim=2, keepdim=True))
+        dvt = torch.einsum("rnfh,rnhd->rnfhd", alpha, gh)
+        if cfg.slope is not None:
+            de = de * torch.where(e0 >= 0, 1.0, cfg.slope).to(de.dtype)
+        deb = de.sum(dim=2) if need[3] else None
+        des = de * cfg.scale
+        dqv = torch.einsum("rnfh,rnfhe->rnhe", des, zt).reshape(rb, n, H) if need[2] else None
+        dzt = torch.einsum("rnfh,rnhe->rnfhe", des, qv4)
+        dpe = dpv = None
+        if pe is not None:
+            dz4 = torch.einsum("rnfhe,rhde->rnfhd", dzt, peg)
+            dv4 = torch.einsum("rnfhe,rhde->rnfhd", dvt, pvg)
+            if need[6]:
+                dpe = segment_sum(torch.einsum("rnfhd,rnfhe->rhde", z4, dzt), u[2],
+                                  pe.shape[0])
+            if need[7]:
+                dpv = segment_sum(torch.einsum("rnfhd,rnfhe->rhde", v4, dvt), u[2],
+                                  pv.shape[0])
+        else:
+            dz4, dv4 = dzt, dvt
+        # einsum may hand back permuted views; the dh kernel takes contiguous rows
+        dz = dz4.reshape(rb, n * f, H).contiguous()
+        dv = dv4.reshape(rb, n * f, H).contiguous()
+        hf_t = h.reshape(rb, n * f, d_in).transpose(1, 2)
+        dh_ = dwe = dwv = None
+        if wv is None:
+            dcomb = dz + dv
+            if need[4]:
+                dwe = segment_sum(torch.bmm(hf_t, dcomb), u[0], we.shape[0])
+            if need[0]:
+                dh_ = stacked_attn_dh(dcomb.reshape(rb, n, f, H), None, we, None, us)
+        else:
+            if need[4]:
+                dwe = segment_sum(torch.bmm(hf_t, dz), u[0], we.shape[0])
+            if need[5]:
+                dwv = segment_sum(torch.bmm(hf_t, dv), u[1], wv.shape[0])
+            if need[0]:
+                dh_ = stacked_attn_dh(dz.reshape(rb, n, f, H), dv.reshape(rb, n, f, H),
+                                      we, wv, us)
+        return dh_, None, dqv, deb, dwe, dwv, dpe, dpv, None, None
+
+
+def stacked_attn_epilogue(epi, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Fused attention AGG_r from a module's :class:`~repro_torch.core.relmod.
+    AttnEpilogue` operands, differentiable in ``h`` and every operand
+    (:class:`_StackedAttnEpilogue`); without a gradient to take it launches
+    the kernel with no residuals."""
+    rb = h.shape[0]
+    post = epi.pe is not None
+    if post != (epi.pv is not None) or (post and epi.ua is None):
+        raise ValueError("AttnEpilogue: pe and pv come together, with ua")
+    wv_rows = (epi.we if epi.wv is None else epi.wv).shape[0]
+    us = attn_slots(epi.ue, epi.ue if epi.uv is None else epi.uv,
+                    epi.ua if post else np.zeros(rb, np.int64),
+                    (epi.we.shape[0], wv_rows, epi.pe.shape[0] if post else 1), rb,
+                    h.device)
+    cfg = _AECfg(int(epi.num_heads), int(epi.head_dim), float(epi.scale),
+                 None if epi.slope is None else float(epi.slope))
+    # the kernel takes contiguous operands (qv through its strides); eb comes
+    # out of an einsum, which may return a permuted view
+    args = (h.contiguous(), mask, epi.qv, None if epi.eb is None else epi.eb.contiguous(),
+            epi.we, epi.wv, epi.pe, epi.pv)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        out = _StackedAttnEpilogue.apply(*args, us, cfg)
+    else:
+        out = attn_epilogue_forward(*args, us, num_heads=cfg.num_heads,
+                                    head_dim=cfg.head_dim, scale=cfg.scale, slope=cfg.slope)
+    return out if epi.bias is None else out + epi.bias[:, None, :]
+
+
+def _epilogue_linear(w_stack, u, x, *, blocks: Blocks) -> torch.Tensor:
+    """Per-slot projection ``x @ w_stack[u]`` for the q side of an attention
+    epilogue: :func:`stacked_mean_linear` at fanout 1 (the masked mean over
+    one neighbour is the identity), so the weights are read from the stack
+    and the gradient lands in stack form."""
+    rb, n, _ = x.shape
+    zb = torch.zeros((w_stack.shape[0], w_stack.shape[2]), dtype=w_stack.dtype,
+                     device=w_stack.device)
+    ones = torch.ones((rb, n, 1), dtype=torch.bool, device=x.device)
+    return stacked_mean_linear(x.contiguous()[:, :, None, :], ones, w_stack, zb, u, *blocks)
+
+
+def _is_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _attn_parts_agg(module, stacks, slot_u, h, q, mask) -> torch.Tensor:
+    """The ``fuse_epilogue=False`` path: the module's ``attn_parts`` on
+    gathered per-slot weights, then the masked softmax + combine.  Plain
+    PyTorch on the CPU; CUDA tensors raise until kernel 3 is ported."""
+    if _is_cuda(h):
+        raise NotImplementedError(
+            "kernels.fuse_epilogue=False: its masked softmax + combine is kernel 3 "
+            "(stacked_softmax_combine_pallas, src/repro/kernels/stacked_relation_agg/"
+            "kernel.py:227), which a later slice of the port ports; on the GPU keep "
+            "fuse_epilogue=True (the fused kernels stacked_attn_epilogue and "
+            "stacked_attn_dh)")
+    scope_of = {s.name: s.scope for s in module.specs}
+    p_slots = {name: stacks[name][_slot_index(slot_u[scope_of[name]], stacks[name].shape[0],
+                                              stacks[name].device)]
+               for name in stacks}
+    e, v = torch.func.vmap(module.attn_parts)(p_slots, h, q)
+    out = stacked_softmax_combine_ref(e, mask, v)
+    bias = module.attn_bias(p_slots)
+    return out if bias is None else out + bias[:, None, :]
+
+
 def stacked_agg(
     module,
     stacks: Dict[str, torch.Tensor],  # {leaf: [U_scope, ...]} one shard's slabs
@@ -396,15 +891,26 @@ def stacked_agg(
     opts=None,
 ) -> torch.Tensor:
     """One level's AGG_r for every branch slot (see module docstring).
-    The forward kernel's launch block sizes come from ``opts``
-    (``resolve_blocks``); the ``dh`` kernel keeps its defaults."""
+    The ``stacked_mean_linear`` forward's launch block sizes (R-GCN's
+    aggregation and the attention models' q side) come from ``opts``
+    (``resolve_blocks``); every other kernel keeps its defaults."""
     scope_of = {s.name: s.scope for s in module.specs}
-    if (kernel_choice(opts, "stacked_agg") and module.fused == "mean_linear"
-            and scope_of.get("w") is not None
+    use = kernel_choice(opts, "stacked_agg")
+    if (use and module.fused == "mean_linear" and scope_of.get("w") is not None
             and scope_of.get("w") == scope_of.get("b")):
         bn, bo, bc = resolve_blocks(opts, "stacked_mean_linear")
         return stacked_mean_linear(
             h, mask, stacks["w"], stacks["b"], slot_u[scope_of["w"]],
             block_n=bn, block_out=bo, block_in=bc,
         )
+    if use and module.fused == "softmax_combine":
+        if getattr(opts, "fuse_epilogue", True):
+            blocks = resolve_blocks(opts, "stacked_mean_linear")
+            epi = module.attn_epilogue(
+                stacks, slot_u, q,
+                linear=lambda w, u, x: _epilogue_linear(w, u, x, blocks=blocks),
+                take=take_slots)
+            if epi is not None:
+                return stacked_attn_epilogue(epi, h, mask)
+        return _attn_parts_agg(module, stacks, slot_u, h, q, mask)
     return stacked_agg_ref(module, stacks, slot_u, h, q, mask)

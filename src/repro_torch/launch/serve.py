@@ -11,6 +11,7 @@ rates.  All ``HetaConfig`` flags apply (``--scale``, ``--steps``,
 
 Usage:
   python -m repro_torch.launch.serve --scale 0.1
+  python -m repro_torch.launch.serve --model rgat --scale 0.1
   python -m repro_torch.launch.serve --scale 0.002 --device cpu
 """
 

@@ -8,6 +8,7 @@ they are the reference CLI's; ``--device cpu`` runs the plain PyTorch path.
 
 Usage:
   python -m repro_torch.launch.train --scale 0.1 --batch-size 1024
+  python -m repro_torch.launch.train --model hgt --scale 0.1 --batch-size 1024
   python -m repro_torch.launch.train --device cpu --scale 0.002 --steps 2
 
 Prints per-step losses, then the result dict as JSON and the final loss.

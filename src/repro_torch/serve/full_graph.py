@@ -302,7 +302,11 @@ def infer_all(
     feature-table snapshot (``EmbedEngine.tables_snapshot()``).  Nodes are
     processed in ``node_block`` chunks (shrunk automatically when a level's
     max in-degree would blow the block budget) on ``device`` (``None``: the
-    GPU, or :class:`~repro_torch.device.NoGPUError` without one)."""
+    GPU, or :class:`~repro_torch.device.NoGPUError` without one).  On the
+    GPU an attention model's group fanout must fit one row of the epilogue
+    kernel's shared memory (f <= 392 for HGT at hidden 64, 4 heads), else
+    :class:`~repro_torch.kernels.stacked_relation_agg.FanoutTooWideError`;
+    cap the graph's in-degree (:func:`bounded_graph`) beyond that."""
     if shm:
         raise NotImplementedError(
             "serve.shm: the shm-backed embedding store arrives with the "

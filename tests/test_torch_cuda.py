@@ -6,9 +6,10 @@ it runs on the GPU host as it is:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerance: fp32, atol 1e-5 / rtol 1e-5 for the aggregation and its
-backward (the kernels sum the fanout and the contraction in their own
-order); the gather is exact.
+Tolerance: fp32, atol 1e-5 / rtol 1e-5 for the aggregations and their
+backwards (the kernels sum the fanout and the contraction in their own
+order; the attention epilogue also applies HGT's per-head transforms once
+per row instead of once per neighbour); the gather is exact.
 TF32 is switched off so the plain version's matmul runs in full fp32.
 """
 
@@ -20,8 +21,15 @@ from repro_torch.api.config import KernelConfig
 from repro_torch.core.relmod import get_relation_module
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
+from repro_torch.kernels.stacked_relation_agg import ops as sra
 from repro_torch.kernels.stacked_relation_agg import (
+    FanoutTooWideError,
+    attn_epilogue_forward,
+    attn_slots,
     stacked_agg,
+    stacked_attn_dh,
+    stacked_attn_dh_ref,
+    stacked_attn_epilogue_ref,
     stacked_mean_linear,
     stacked_mean_linear_dh,
     stacked_mean_linear_dh_ref,
@@ -194,3 +202,203 @@ def test_cuda_block_override_reaches_only_the_forward(cuda_device):
         assert kops.KERNELS["stacked_mean_linear_dh"].launches == before + 1
     for name, a, c in zip(("dh", "dw", "db"), grads[1], grads[0]):
         np.testing.assert_allclose(a, c, **TOL, err_msg=name)
+
+
+# --------------------------------------------------------------------------
+# the attention kernels (R-GAT, HGT)
+# --------------------------------------------------------------------------
+
+# (rb, n, f, d_in, nh, dh, U): ragged n and d_in (789: donor's features),
+# f in {1, 3, 16, 64, 100}, H = 72 (two column passes), the training leaf
+# and the serving block
+ATTN_SHAPES = [
+    (5, 19, 4, 23, 4, 8, 3),
+    (4, 33, 1, 789, 4, 16, 3),
+    (3, 130, 3, 129, 4, 16, 2),
+    (2, 7, 16, 37, 2, 8, 2),
+    (3, 45, 64, 100, 4, 16, 2),
+    (2, 9, 100, 33, 4, 16, 2),
+    (3, 50, 5, 70, 3, 24, 2),
+    (6, 4096, 3, 128, 4, 16, 6),
+    (2, 1024, 16, 128, 4, 16, 2),
+]
+
+
+def _attn_case(rb, n, f, di, nh, dh, U, variant, seed, device):
+    """R-GAT operands (eb, slope 0.2, values shared with the logits
+    projection, a per-slot qv expanded over the destinations) or HGT's
+    (separate wv, pe/pv transforms, materialized qv, scale 1/sqrt(dh)),
+    with shared stack rows and fully masked rows."""
+    r = np.random.default_rng(seed)
+    H = nh * dh
+    t = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
+        (r.standard_normal(s) * sc).astype(np.float32)).to(device)
+    h = t(rb, n, f, di)
+    mask = r.random((rb, n, f)) > 0.3
+    mask[0, 0] = False
+    mask[-1, n // 2] = False
+    slots = [r.integers(0, U, rb) for _ in range(3)]
+    slots[0][: min(rb, 2)] = 0
+    if variant == "rgat":
+        ops = dict(qv=t(rb, 1, H, sc=0.1).expand(rb, n, H), eb=t(rb, n, nh), we=t(U, di, H, sc=0.1),
+                   wv=None, pe=None, pv=None)
+        kw = dict(scale=1.0, slope=0.2)
+    else:
+        ops = dict(qv=t(rb, n, H, sc=0.3), eb=None, we=t(U, di, H, sc=0.1),
+                   wv=t(U, di, H, sc=0.1), pe=t(U, nh, dh, dh, sc=0.3),
+                   pv=t(U, nh, dh, dh, sc=0.3))
+        kw = dict(scale=float(1 / np.sqrt(dh)), slope=None)
+    us = attn_slots(*slots, (U, U, U), rb, device)
+    return h, torch.from_numpy(mask).to(device), ops, us, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_res", [False, True], ids=["out", "residuals"])
+@pytest.mark.parametrize("variant", ["rgat", "hgt"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_cuda_attn_epilogue_matches_plain(cuda_device, shape, variant, with_res):
+    rb, n, f, di, nh, dh, U = shape
+    h, mask, ops, us, kw = _attn_case(*shape, variant, n + f, cuda_device)
+    before = kops.KERNELS["stacked_attn_epilogue"].launches
+    got = attn_epilogue_forward(h, mask, **ops, us=us, num_heads=nh, head_dim=dh,
+                                with_residuals=with_res, **kw)
+    torch.cuda.synchronize()
+    assert kops.KERNELS["stacked_attn_epilogue"].launches == before + 1
+    want = stacked_attn_epilogue_ref(h, mask, **ops, us=us, num_heads=nh, head_dim=dh,
+                                     with_residuals=with_res, **kw)
+    got, want = (got, want) if with_res else ((got,), (want,))
+    for name, a, b in zip(("out", "z0", "v0"), got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL, err_msg=name)
+    if with_res and variant == "rgat":
+        assert got[2] is got[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["rgat", "hgt"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_cuda_attn_dh_matches_plain(cuda_device, shape, variant):
+    rb, n, f, di, nh, dh, U = shape
+    _, _, ops, us, _ = _attn_case(*shape, variant, rb + di, cuda_device)
+    r = np.random.default_rng(f)
+    g = lambda: torch.from_numpy(  # noqa: E731
+        r.standard_normal((rb, n, f, nh * dh)).astype(np.float32)).to(cuda_device)
+    dz, dv = g(), (None if variant == "rgat" else g())
+    before = kops.KERNELS["stacked_attn_dh"].launches
+    got = stacked_attn_dh(dz, dv, ops["we"], ops["wv"], us)
+    torch.cuda.synchronize()
+    assert kops.KERNELS["stacked_attn_dh"].launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), stacked_attn_dh_ref(
+        dz, dv, ops["we"], ops["wv"], us).cpu().numpy(), **TOL)
+
+
+def _module_inputs(model, rb, n, f, di, dd, seed):
+    from repro_torch.core.relmod import ShapeCtx
+
+    r = np.random.default_rng(seed)
+    mod = get_relation_module(model)
+    sc = ShapeCtx(64, 4, 16, di, dd)
+    U_of = {s: u for s, u in zip(mod.scopes, (3, 2, 5))}
+    stacks = {s.name: (r.standard_normal((U_of[s.scope],) + tuple(s.shape(sc))) * 0.1
+                       ).astype(np.float32) for s in mod.specs}
+    slot_u = {s: np.where(np.arange(rb) < 2, 0, r.integers(0, U_of[s], rb))
+              for s in mod.scopes}
+    h = r.standard_normal((rb, n, f, di)).astype(np.float32)
+    q = r.standard_normal((rb, n, dd)).astype(np.float32)
+    mask = r.random((rb, n, f)) > 0.3
+    mask[0, 1] = False
+    return mod, stacks, slot_u, h, q, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rgat", "hgt"])
+@pytest.mark.parametrize("rb,n,f,di,dd", [(5, 19, 4, 23, 17), (6, 700, 3, 128, 128)])
+def test_cuda_attention_autograd_matches_cpu(cuda_device, model, rb, n, f, di, dd):
+    """The fused path's forward and every gradient (stacks, h, q) through
+    _StackedAttnEpilogue on the card (kernels 4 and 5, the q side through
+    kernels 1 and 2) against the same Function on the CPU (plain versions)."""
+    mod, stacks, slot_u, h, q, mask = _module_inputs(model, rb, n, f, di, dd, seed=rb * f)
+    g = np.random.default_rng(n).standard_normal((rb, n, 64)).astype(np.float32)
+    res = []
+    for dev in ("cpu", cuda_device):
+        ts = {k: torch.from_numpy(v).to(dev).requires_grad_(True) for k, v in stacks.items()}
+        th, tq = (torch.from_numpy(a).to(dev).requires_grad_(True) for a in (h, q))
+        out = stacked_agg(mod, ts, slot_u, th, tq, torch.from_numpy(mask).to(dev))
+        grads = torch.autograd.grad(out, [*ts.values(), th, tq], torch.from_numpy(g).to(dev))
+        res.append([out.detach().cpu().numpy()] + [x.cpu().numpy() for x in grads])
+    # the stack gradients are reductions over every (row, neighbour) pair
+    # (2100 at the larger shape) that torch runs on both devices, in
+    # cuBLAS's order on the card; their fp32 rounding grows with the terms'
+    # magnitude, so each array is held to 1e-5 of its largest entry
+    names = ["out", *stacks, "h", "q"]
+    for name, a, c in zip(names, res[1], res[0]):
+        np.testing.assert_allclose(a, c, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * max(1.0, float(np.abs(c).max())),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_refuse_what_they_do_not_take(cuda_device):
+    h, mask, ops, us, kw = _attn_case(2, 5, 3, 6, 2, 4, 2, "hgt", 0, cuda_device)
+
+    def call(**k):
+        args = {"h": h, "mask": mask, **ops, "us": us, **k}
+        return attn_epilogue_forward(**args, num_heads=2, head_dim=4, **kw)
+
+    with pytest.raises(ValueError, match="float32"):
+        call(h=h.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(h=torch.zeros((2, 5, 6, 3), device=cuda_device).transpose(2, 3))
+    with pytest.raises(ValueError, match="unit stride"):
+        call(qv=torch.zeros((2, 8, 5), device=cuda_device).transpose(1, 2))
+    with pytest.raises(ValueError):
+        call(we=ops["we"].cpu())
+    with pytest.raises(ValueError, match="us must be"):
+        call(us=us.cpu())
+    with pytest.raises(ValueError, match="us must be"):
+        call(us=us.long())
+    # one row of 3000 neighbours at 2 heads x 4 needs 4 * (3000 * 18 + 16) bytes
+    # beside the staging tiles: over the 227 KB of one block
+    with pytest.raises(FanoutTooWideError):
+        attn_epilogue_forward(torch.zeros((1, 1, 3000, 6), device=cuda_device),
+                              torch.ones((1, 1, 3000), dtype=torch.bool, device=cuda_device),
+                              qv=torch.zeros((1, 1, 8), device=cuda_device), eb=None,
+                              we=ops["we"], wv=ops["wv"], pe=ops["pe"], pv=ops["pv"],
+                              us=us[:, :1].contiguous(), num_heads=2, head_dim=4)
+    dz = torch.zeros((2, 5, 3, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        stacked_attn_dh(dz.double(), None, ops["we"], None, us)
+    with pytest.raises(ValueError, match="contiguous"):
+        stacked_attn_dh(torch.zeros((2, 5, 8, 3), device=cuda_device).transpose(2, 3), None,
+                        ops["we"], None, us)
+    with pytest.raises(ValueError, match="shapes"):
+        stacked_attn_dh(dz, dz, ops["we"], None, us)
+    with pytest.raises(IndexError):
+        attn_slots(np.array([0, 2]), np.array([0, 1]), np.array([0, 1]), (2, 2, 2), 2,
+                   cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rgat", "hgt"])
+def test_cuda_attention_never_reaches_a_plain_version(cuda_device, model, monkeypatch):
+    """With every plain version made to raise, the fused path's forward and
+    backward on CUDA tensors still run (through kernels 1, 2, 4 and 5), and
+    fuse_epilogue=False raises the named NotImplementedError (kernel 3)."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("stacked_attn_epilogue_ref", "stacked_attn_dh_ref", "stacked_mean_linear_ref",
+                 "stacked_mean_linear_dh_ref", "stacked_softmax_combine_ref", "stacked_agg_ref"):
+        monkeypatch.setattr(sra, name, refuse)
+    mod, stacks, slot_u, h, q, mask = _module_inputs(model, 4, 50, 3, 40, 40, seed=3)
+    ts = {k: torch.from_numpy(v).to(cuda_device).requires_grad_(True) for k, v in stacks.items()}
+    th, tq = (torch.from_numpy(a).to(cuda_device).requires_grad_(True) for a in (h, q))
+    tm = torch.from_numpy(mask).to(cuda_device)
+    kops.reset_launch_counts()
+    out = stacked_agg(mod, ts, slot_u, th, tq, tm)
+    torch.autograd.grad(out.sum(), [*ts.values(), th, tq])
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kops.KERNELS.items()}
+    assert launches["stacked_attn_epilogue"] == 1 and launches["stacked_attn_dh"] == 1
+    assert launches["stacked_mean_linear"] == 1 and launches["stacked_mean_linear_dh"] == 1
+    with pytest.raises(NotImplementedError, match="kernel 3"):
+        stacked_agg(mod, ts, slot_u, th, tq, tm, opts=KernelConfig(fuse_epilogue=False))

@@ -19,7 +19,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      values shared with the logits projection, a per-slot qv) and HGT's
      (separate values, pe/pv transforms) — with and without residuals, at
      f in {1, 3, 16, 64, 100}, ragged n and d_in (789), fully masked rows
-     and shared stack rows;
+     and shared stack rows; relation_agg (the dict-form R-GCN aggregation)
+     at the reference's AGG_SHAPES, the raf path's shapes and an all-masked
+     case; stacked_softmax_combine (the unfused attention epilogue) at the
+     reference's cases, f in {16, 64, 100}, ragged n and H beyond 256;
   4. training — a port ``Heta`` session on the GPU at each model's full
      width (hidden 64, 4 heads, learnable_dim 64, 2 layers, fanouts 4,3,
      learnable tables through the default 4 MiB cache) on ogbn-mag capped
@@ -32,6 +35,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and their query-side projections stacked_mean_linear (f = 1) and its
      backward.  The losses must be finite and the step-0 batch must score
      lower after the fit;
+  4c. dict-form executors — R-GCN at the same width on the same graph
+     through vanilla (the oracle, which by the reference's design launches no
+     aggregation kernel) and raf (relation_agg once per metatree branch and
+     step), 20 steps each with learnable tables in the bundle; their first 3
+     losses within 1e-5 (Prop 1), step 0's batch re-scored lower; a fresh raf
+     session resumes from raf's step-10 checkpoint (bit for bit, or within
+     1e-6); comm_report at this scale;
+  4d. unfused attention — R-GAT and HGT through raf_spmd with
+     fuse_epilogue=False, 20 steps: stacked_softmax_combine launched, the
+     fused kernels not; first 3 losses within 1e-5 of phase 4b's fused runs;
+     then infer_all fused and unfused on the trained state (kernel 3 at
+     f = 16), the stores within atol/rtol 1e-5;
   5. resume — a fresh session restores the step-10 checkpoint and trains
      to step 20; its losses must equal the uninterrupted run's bit for bit
      (every reduction on the path runs in a fixed order): R-GCN (5), HGT (5b);
@@ -52,12 +67,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      L2), the plain version's time, the library call's time where one
      PyTorch call computes the same function, and the least time the card
      could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
-     cores); plus the whole backward of the R-GCN autograd Function (dh +
-     dw + db) at the leaf shape;
+     cores); relation_agg and stacked_softmax_combine at every shape their
+     paths launched; at f = 1 the library call of stacked_mean_linear
+     (torch.baddbmm) and of its dh (torch.bmm), the slot gather outside the
+     timed call; plus the whole backward of the R-GCN autograd Function (dh
+     + dw + db) at the leaf shape;
   8. card vs CPU — the same training session at a small scale on the GPU
-     (kernels) and on the CPU (plain PyTorch), for R-GCN, R-GAT and HGT:
-     3-step losses within 1e-5, then every type's infer_all embeddings
-     within atol/rtol 1e-5.
+     (kernels) and on the CPU (plain PyTorch), for R-GCN, R-GAT and HGT, the
+     raf executor's R-GCN and the unfused R-GAT: 3-step losses within 1e-5,
+     then (raf_spmd) every type's infer_all embeddings within atol/rtol
+     1e-5.
 
 The last three lines are the card's name and power limit, one JSON object
 describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -214,11 +233,20 @@ def time_mean_linear(shape, device):
         raw.append((h, mask.view(torch.uint8), w, b, u_dev, out, bn, bo, bc))
     ms = time_ms(sml.launch_kernel, raw)
     plain_ms = time_ms(sml.stacked_mean_linear_ref, sets)
+    library_ms = None
+    if f == 1:
+        # at f = 1 (the attention models' q side) the function is one
+        # torch.baddbmm after the slot gather, which stays outside the call
+        lib = []
+        for h, mask, w, b, slot_u in sets:
+            u = torch.from_numpy(np.asarray(slot_u, np.int64)).to(device)
+            lib.append((b[u][:, None, :].contiguous(), h[:, :, 0, :].contiguous(), w[u]))
+        library_ms = time_ms(torch.baddbmm, lib)
     nbytes = h_bytes + rb * n * f + U * di * do * 4 + U * do * 4 + rb * 4 + rb * n * do * 4
     flops = 2 * rb * n * f * di + 2 * rb * n * di * do + rb * n * do
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, bytes=nbytes, flops=flops)
+                library_ms=library_ms, bytes=nbytes, flops=flops)
 
 
 def time_gather(shape, device):
@@ -300,11 +328,17 @@ def time_dh(shape, device):
         plain.append((g, mask, w, u_dev))
     ms = time_ms(sml.launch_dh_kernel, raw)
     plain_ms = time_ms(sml.stacked_mean_linear_dh_ref, plain)
+    library_ms = None
+    if f == 1:
+        # at f = 1 the function is one torch.bmm against the slot-gathered,
+        # transposed weights; the gather stays outside the timed call
+        library_ms = time_ms(torch.bmm, [(g, w[u.long()].transpose(1, 2))
+                                         for g, _, w, u in plain])
     nbytes = out_bytes + rb * n * do * 4 + rb * n * f + U * di * do * 4 + rb * 4
     flops = 2 * rb * n * di * do + rb * n * di + rb * n * f * di
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, bytes=nbytes, flops=flops)
+                library_ms=library_ms, bytes=nbytes, flops=flops)
 
 
 def time_backward(shape, device):
@@ -514,27 +548,153 @@ def time_attn_dh(shape, device):
 
 
 # --------------------------------------------------------------------------
+# the dict-form executors' kernel (relation_agg) and the unfused attention
+# epilogue (stacked_softmax_combine): inputs, plain versions, timing
+# --------------------------------------------------------------------------
+
+
+def relation_agg_inputs(shape, seed, device, all_masked=False):
+    """(h, mask, w, b) of a recorded relation_agg shape (n, f, d_in, d_out),
+    row 0 fully masked."""
+    import numpy as np
+    import torch
+
+    n, f, di, do = shape
+    r = np.random.default_rng(seed)
+    h = torch.from_numpy(r.standard_normal((n, f, di)).astype(np.float32)).to(device)
+    m = np.zeros((n, f), bool) if all_masked else r.random((n, f)) > 0.3
+    m[0] = False
+    w = torch.from_numpy((r.standard_normal((di, do)) * 0.1).astype(np.float32)).to(device)
+    b = torch.from_numpy((r.standard_normal(do) * 0.1).astype(np.float32)).to(device)
+    return h, torch.from_numpy(m).to(device), w, b
+
+
+def close(name, shape, got, ref) -> float:
+    """Hold ``got`` to ``ref`` at TOL; returns the max abs error."""
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite output")
+    err = (got - ref).abs()
+    check(bool((err <= TOL["atol"] + TOL["rtol"] * ref.abs()).all()),
+          f"{name} {shape}: max abs err {float(err.max()):.3g} over tolerance")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_relation_agg(shape, seed, device, all_masked=False) -> float:
+    import torch
+
+    from repro_torch.kernels.relation_agg import ops as ra
+
+    h, mask, w, b = relation_agg_inputs(shape, seed, device, all_masked)
+    got = ra.relation_agg(h, mask, w, b)
+    ref = ra.relation_agg_ref(h, mask, w, b)
+    torch.cuda.synchronize()
+    check(bool(((got[0] - b).abs() <= TOL["atol"] + TOL["rtol"] * b.abs()).all()),
+          f"relation_agg {shape}: the all-masked row is not b")
+    return close("relation_agg", shape, got, ref)
+
+
+def time_relation_agg(shape, device):
+    import torch
+
+    from repro_torch.kernels.relation_agg import ops as ra
+
+    n, f, di, do = shape
+    h_bytes = n * f * di * 4
+    sets = [relation_agg_inputs(shape, 600 + i, device)
+            for i in range(copies_to_exceed_l2(h_bytes))]
+    raw = [(h, mask.view(torch.uint8), w, b,
+            torch.empty((n, do), dtype=torch.float32, device=device))
+           for h, mask, w, b in sets]
+    ms = time_ms(ra.launch_kernel, raw)
+    plain_ms = time_ms(ra.relation_agg_ref, sets)
+    nbytes = h_bytes + n * f + di * do * 4 + do * 4 + n * do * 4
+    flops = 2 * n * f * di + n * di + 2 * n * di * do + n * do
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bytes=nbytes, flops=flops)
+
+
+def softmax_combine_inputs(shape, seed, device):
+    """(e, mask, v) of a recorded stacked_softmax_combine shape (rb, n, f,
+    nh, dh), row 0 of slot 0 fully masked."""
+    import numpy as np
+    import torch
+
+    rb, n, f, nh, dh = shape
+    r = np.random.default_rng(seed)
+    e = torch.from_numpy(r.standard_normal((rb, n, f, nh)).astype(np.float32)).to(device)
+    v = torch.from_numpy(r.standard_normal((rb, n, f, nh, dh)).astype(np.float32)).to(device)
+    m = r.random((rb, n, f)) > 0.3
+    m[0, 0] = False
+    return e, torch.from_numpy(m).to(device), v
+
+
+def check_softmax_combine(shape, seed, device) -> float:
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+    e, mask, v = softmax_combine_inputs(shape, seed, device)
+    got = sra.stacked_softmax_combine(e, mask, v)
+    ref = sra.stacked_softmax_combine_ref(e, mask, v)
+    torch.cuda.synchronize()
+    check(not bool(got[0, 0].any()), f"stacked_softmax_combine {shape}: masked row is not 0")
+    return close("stacked_softmax_combine", shape, got, ref)
+
+
+def time_softmax_combine(shape, device):
+    import torch
+
+    from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+    rb, n, f, nh, dh = shape
+    H = nh * dh
+    v_bytes = rb * n * f * H * 4
+    sets = [softmax_combine_inputs(shape, 700 + i, device)
+            for i in range(copies_to_exceed_l2(v_bytes))]
+    rows = sra.softmax_combine_rows(H)
+    raw = [(e, mask.view(torch.uint8), v,
+            torch.empty((rb, n, H), dtype=torch.float32, device=device), rows)
+           for e, mask, v in sets]
+    ms = time_ms(sra.launch_softmax_combine, raw)
+    plain_ms = time_ms(sra.stacked_softmax_combine_ref, sets)
+    nbytes = rb * n * f * nh * 4 + rb * n * f + v_bytes + rb * n * H * 4
+    # per (row, head): max, exp of the difference, sum, divide over f; per
+    # (row, column): a multiply-add over f
+    flops = 4 * rb * n * nh * f + 2 * rb * n * H * f
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bytes=nbytes, flops=flops)
+
+
+# --------------------------------------------------------------------------
 # the slice
 # --------------------------------------------------------------------------
 
 
-def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn"):
+def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn",
+                   executor: str = "raf_spmd", fuse_epilogue: bool = True):
     from repro_torch.api import DataConfig, HetaConfig, ModelConfig
 
     return HetaConfig(
         data=DataConfig(dataset="ogbn-mag", scale=scale, fanouts=(4, 3),
                         batch_size=batch_size),
         model=ModelConfig(model=model),
-    )
+    ).updated(run=dict(executor=executor), kernels=dict(fuse_epilogue=fuse_epilogue))
 
 
 def build_session(scale: float, device, max_degree: int = 16, batch_size: int = 1024,
-                  model: str = "rgcn"):
+                  model: str = "rgcn", executor: str = "raf_spmd", fuse_epilogue: bool = True,
+                  graph=None):
+    """A compiled session; ``graph`` reuses a graph built (and bounded)
+    before."""
     from repro_torch.api import Heta
     from repro_torch.serve import bounded_graph
 
-    sess = Heta(session_config(scale, batch_size, model), device=device)
-    g = bounded_graph(sess.build_graph(), max_degree)
+    sess = Heta(session_config(scale, batch_size, model, executor, fuse_epilogue),
+                device=device)
+    g = graph if graph is not None else bounded_graph(sess.build_graph(), max_degree)
     sess.build_graph(g)
     sess.partition()
     sess.profile_and_cache()
@@ -766,17 +926,236 @@ def run_serving(sess, g, report: dict, model: str = "rgcn"):
     return shapes
 
 
-def run_reference(scale: float, model: str = "rgcn", steps: int = 3) -> None:
-    """Phase 8: the port on the card against the port on the CPU."""
+def dense_breakdown(sess, batch, reps: int = 10) -> dict:
+    """Median ms of the parts of one dense-bundle step on ``batch``, each
+    ended by a device synchronize: host staging (index arrays to the
+    device), forward, backward, Adam over the whole bundle.  The results
+    are dropped: the session's state does not change."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api.executors import _bundle_grads, _trainable
+    from repro_torch.optim.adam import adam_update, tree_leaves
+
+    parts = {"stage": [], "forward": [], "backward": [], "adam": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrs = sess.executor.stage(sess, sess.plan, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bundle = _trainable(sess.state["bundle"])
+        loss = sess.plan.loss(bundle, arrs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads = _bundle_grads(bundle, loss)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        with torch.no_grad():
+            adam_update(sess.adam_cfg, bundle, grads, sess.state["opt"])
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, a, b in (("stage", t0, t1), ("forward", t1, t2), ("backward", t2, t3),
+                        ("adam", t3, t4)):
+            parts[k].append((b - a) * 1e3)
+    out = {k: float(np.median(v)) for k, v in parts.items()}
+    out["leaves"] = len(tree_leaves(sess.state["bundle"]))
+    out["bundle_mb"] = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(sess.state["bundle"])) / 1e6
+    return out
+
+
+def run_dense(scale: float, report: dict, graph) -> dict:
+    """Phase 4c: R-GCN at full width through the dict-form executors on the
+    card, from reset launch counts: vanilla (the oracle, which by the
+    reference's design launches no aggregation kernel), then raf (kernel 6
+    once per metatree branch and step), saving at the half way step; then a
+    fresh raf session resumes from it.  Returns the shapes the raf fit
+    launched each kernel at."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    runs, shapes_raf = {}, None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        for executor in ("vanilla", "raf"):
+            t0 = time.perf_counter()
+            sess, _ = build_session(scale, None, executor=executor, graph=graph)
+            check(sess.device.type == "cuda", f"{executor} session landed on {sess.device}")
+            check(set(sess.state["bundle"]["embed"]) == set(sess.engine.learnable_types),
+                  f"{executor}: the learnable tables are not training in the bundle")
+            steps = sess.config.run.steps
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            sess.fit(steps // 2)
+            if executor == "raf":
+                sess.save(ckpt_dir)
+            res = sess.fit(steps - steps // 2)
+            torch.cuda.synchronize()
+            launches, shapes = launch_counts()
+            t_fit = time.perf_counter() - t1
+            losses = res["losses"]
+            check(len(losses) == steps and bool(np.isfinite(losses).all()),
+                  f"{executor}: losses {losses}")
+            branches = sum(len(lv) for lv in sess.spec.levels)
+            if executor == "raf":
+                check(launches["relation_agg"] == steps * branches,
+                      f"raf launched relation_agg {launches['relation_agg']} times in {steps} "
+                      f"steps of {branches} branches")
+                check(not any(v for k, v in launches.items() if k != "relation_agg"),
+                      f"raf launched other kernels: {launches}")
+                shapes_raf = shapes
+            else:
+                check(not any(launches.values()), f"vanilla launched kernels: {launches}")
+            first_after, _ = sess.executor.loss_and_metrics(sess, sess.plan, sess.state,
+                                                            sess._batch_for_step(0))
+            check(first_after < losses[0],
+                  f"{executor}: step 0's batch scores {first_after} after the fit, "
+                  f"{losses[0]} before")
+            n = len(sess.step_times)
+            log(f"  [rgcn {executor}] fit: {steps} steps in {t_fit:.3f} s wall; losses "
+                f"{losses[0]:.6f} -> {losses[-1]:.6f}; step 0's batch re-scored after the fit "
+                f"{first_after:.6f}; {branches} branches a step")
+            log(f"  [rgcn {executor}] median of steps 2..{n - 1}: step "
+                f"{res['step_time_s'] * 1e3:.3f} ms, host sample+stage "
+                f"{res['host_time_s'] * 1e3:.3f} ms; samples/s {res['samples_per_s']:.1f}; "
+                f"launches {dict((k, v) for k, v in launches.items() if v)}; shapes "
+                f"{dict(shapes['relation_agg'])} ({time.perf_counter() - t0:.1f} s phase)")
+            log(f"  [rgcn {executor}] per step (ms) step/host: " + "; ".join(
+                f"{a * 1e3:.1f}/{b * 1e3:.1f}" for a, b in zip(sess.step_times, sess.host_times)))
+            parts = dense_breakdown(sess, sess._batch_for_step(0))
+            log(f"  [rgcn {executor}] one step's parts, median ms of 10: stage "
+                f"{parts['stage']:.3f}, forward {parts['forward']:.3f}, backward "
+                f"{parts['backward']:.3f}, Adam {parts['adam']:.3f} over {parts['leaves']} "
+                f"leaves ({parts['bundle_mb']:.1f} MB of parameters)")
+            runs[executor] = dict(
+                losses=losses, first_batch_after=first_after, fit_wall_s=t_fit,
+                step_time_s=res["step_time_s"], host_time_s=res["host_time_s"],
+                step_times=list(sess.step_times), host_times=list(sess.host_times),
+                launches=launches, shapes=shape_dict(shapes), branches=branches,
+                breakdown_ms=parts)
+            if executor == "raf":
+                comm = sess.comm_report()
+                log("  [rgcn] comm_report (bytes per batch of "
+                    f"{sess.config.data.batch_size}): " + ", ".join(
+                        f"{k}={v}" for k, v in comm.items()))
+                runs["comm_report"] = comm
+            del sess
+        lv, lr = runs["vanilla"]["losses"], runs["raf"]["losses"]
+        gap3 = max(abs(a - b) for a, b in zip(lv[:3], lr[:3]))
+        gap = max(abs(a - b) for a, b in zip(lv, lr))
+        log(f"  [rgcn] Prop 1: vanilla and raf first 3 losses within {gap3:.3g}, all "
+            f"{len(lv)} within {gap:.3g}")
+        check(gap3 <= TOL["atol"], f"vanilla and raf first 3 losses differ by {gap3:.3g}")
+        resumed, _ = build_session(scale, None, executor="raf", graph=graph)
+        step = resumed.restore(ckpt_dir)
+        resumed.fit(len(lr) - step)
+        tail, want = resumed.losses, list(lr[step:])
+        diff = max(abs(a - b) for a, b in zip(tail, want))
+        bitwise = tail == want
+        log(f"  [rgcn raf] restored step {step}, trained to {step + len(tail)}: "
+            f"{'bit for bit' if bitwise else 'not bit for bit'}, max |loss diff| {diff:.3g}")
+        check(bitwise or diff <= 1e-6, f"raf resume: losses {tail} differ from {want}")
+    report["dense"] = dict(runs, prop1_gap3=gap3, prop1_gap=gap,
+                           resume=dict(step=step, losses=tail, bitwise=bitwise, max_diff=diff))
+    return shapes_raf
+
+
+def run_unfused(scale: float, report: dict, graph, model: str, fused_losses):
+    """Phase 4d: R-GAT or HGT through raf_spmd with fuse_epilogue=False
+    (the attn_parts projections, then kernel 3) from reset launch counts;
+    then infer_all, fused and unfused, on the trained state.  Returns the
+    shapes the fit and the unfused infer_all launched each kernel at."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    t0 = time.perf_counter()
+    sess, _ = build_session(scale, None, model=model, fuse_epilogue=False, graph=graph)
+    steps = sess.config.run.steps
+    reset_launch_counts()
+    res = sess.fit(steps)
+    torch.cuda.synchronize()
+    launches, shapes = launch_counts()
+    losses = res["losses"]
+    check(len(losses) == steps and bool(np.isfinite(losses).all()), f"{model}: {losses}")
+    check(launches["stacked_softmax_combine"] > 0, f"{model} unfused: kernel 3 not launched")
+    check(launches["stacked_attn_epilogue"] == 0 and launches["stacked_attn_dh"] == 0,
+          f"{model} unfused launched the fused kernels: {launches}")
+    gap3 = max(abs(a - b) for a, b in zip(losses[:3], fused_losses[:3]))
+    gap = max(abs(a - b) for a, b in zip(losses, fused_losses))
+    log(f"  [{model} unfused] fit: {steps} steps, losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"against the fused run: first 3 within {gap3:.3g}, all within {gap:.3g}")
+    log(f"  [{model} unfused] median of steps 2..{steps - 1}: step "
+        f"{res['step_time_s'] * 1e3:.3f} ms (sparse update {res['update_time_s'] * 1e3:.3f} "
+        f"ms), host {res['host_time_s'] * 1e3:.3f} ms; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}; kernel 3 shapes "
+        f"{dict(shapes['stacked_softmax_combine'])}")
+    check(gap3 <= TOL["atol"], f"{model}: unfused and fused first 3 losses differ by {gap3:.3g}")
+    sess.config = sess.config.updated(kernels=dict(fuse_epilogue=True))
+    fused = sess.infer_all()
+    sess.config = sess.config.updated(kernels=dict(fuse_epilogue=False))
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    store = sess.infer_all()
+    torch.cuda.synchronize()
+    t_infer = time.perf_counter() - t1
+    s_launches, s_shapes = launch_counts()
+    check(any(x[2] == 16 for x in s_shapes["stacked_softmax_combine"]),
+          f"{model} unfused infer_all: no kernel 3 launch at f = 16 "
+          f"({dict(s_shapes['stacked_softmax_combine'])})")
+    check(s_launches["stacked_attn_epilogue"] == 0, f"{model} unfused infer_all ran kernel 4")
+    worst = 0.0
+    for t, a in fused.embeddings.items():
+        b = store.embeddings[t]
+        check(bool(np.allclose(b, a, **TOL)), f"{model}: unfused infer_all of {t} differs")
+        worst = max(worst, float(np.abs(a - b).max()))
+    tm = store.timings
+    log(f"  [{model} unfused] infer_all {t_infer:.3f} s (host gather {tm['host_gather_s']:.3f}, "
+        f"h2d {tm['h2d_s']:.3f}, compute {tm['compute_s']:.3f}, d2h {tm['d2h_s']:.3f}); "
+        f"against the fused store on this state: max abs diff {worst:.3g}; launches "
+        f"{dict((k, v) for k, v in s_launches.items() if v)} ({time.perf_counter() - t0:.1f} s "
+        "phase)")
+    sess.close_serving()
+    report.setdefault("unfused", {})[model] = dict(
+        losses=losses, gap3=gap3, gap=gap, step_time_s=res["step_time_s"],
+        host_time_s=res["host_time_s"], update_time_s=res["update_time_s"],
+        launches=launches, shapes=shape_dict(shapes), infer_all_s=t_infer,
+        infer_timings=dict(tm), infer_max_diff=worst, infer_launches=s_launches,
+        infer_shapes=shape_dict(s_shapes))
+    return shapes, s_shapes
+
+
+def run_reference(scale: float, model: str = "rgcn", steps: int = 3,
+                  executor: str = "raf_spmd", fuse_epilogue: bool = True) -> dict:
+    """Phase 8: the port on the card against the port on the CPU: 3-step
+    losses, and for the stacked executor the trained infer_all store."""
     import numpy as np
 
-    gpu, _ = build_session(scale, None, max_degree=8, batch_size=32, model=model)
-    cpu, _ = build_session(scale, "cpu", max_degree=8, batch_size=32, model=model)
-    lg, lc = gpu.fit(steps)["losses"], cpu.fit(steps)["losses"]
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    kw = dict(max_degree=8, batch_size=32, model=model, executor=executor,
+              fuse_epilogue=fuse_epilogue)
+    gpu, _ = build_session(scale, None, **kw)
+    cpu, _ = build_session(scale, "cpu", **kw)
+    reset_launch_counts()
+    lg = gpu.fit(steps)["losses"]
+    launches, _ = launch_counts()
+    lc = cpu.fit(steps)["losses"]
     diff = max(abs(a - b) for a, b in zip(lg, lc))
-    log(f"  [{model}] scale {scale}, batch 32: {steps}-step losses GPU {lg} CPU {lc}, "
-        f"max diff {diff:.3g}")
-    check(diff <= TOL["atol"], f"{model}: GPU and CPU losses differ by {diff:.3g}")
+    name = f"{model} {executor}" + ("" if fuse_epilogue else " unfused")
+    log(f"  [{name}] scale {scale}, batch 32: {steps}-step losses GPU {lg} CPU {lc}, "
+        f"max diff {diff:.3g}; GPU launches "
+        + ", ".join(f"{k}={v}" for k, v in launches.items() if v))
+    check(diff <= TOL["atol"], f"{name}: GPU and CPU losses differ by {diff:.3g}")
+    want = ("relation_agg" if executor == "raf" else "stacked_softmax_combine"
+            if not fuse_epilogue else None)
+    check(want is None or launches[want] > 0, f"{name}: {want} was not launched on the GPU")
+    out = dict(losses_gpu=lg, losses_cpu=lc, max_diff=diff, launches=launches)
+    if executor != "raf_spmd":
+        return out
     a, b = gpu.infer_all(), cpu.infer_all()
     check(set(a.embeddings) == set(b.embeddings), f"{model}: types differ between GPU and CPU")
     worst = 0.0
@@ -787,15 +1166,22 @@ def run_reference(scale: float, model: str = "rgcn", steps: int = 3) -> None:
     ids = np.arange(min(64, a.embeddings[a.target_type].shape[0]))
     check(bool(np.allclose(a.scores(ids), b.scores(ids), **TOL)),
           f"{model}: GPU and CPU scores differ")
-    log(f"  [{model}] trained infer_all: {sum(x.shape[0] for x in a.embeddings.values()):,} "
+    log(f"  [{name}] trained infer_all: {sum(x.shape[0] for x in a.embeddings.values()):,} "
         f"embeddings, max abs diff GPU kernels vs CPU plain {worst:.3g}")
+    out["infer_all_max_diff"] = worst
+    return out
 
 
 TIMERS = {"stacked_mean_linear": (time_mean_linear, check_mean_linear),
           "stacked_mean_linear_dh": (time_dh, check_dh),
           "gather_rows": (time_gather, check_gather),
           "stacked_attn_epilogue": (time_attn, check_attn),
-          "stacked_attn_dh": (time_attn_dh, check_attn_dh)}
+          "stacked_attn_dh": (time_attn_dh, check_attn_dh),
+          "relation_agg": (time_relation_agg, check_relation_agg),
+          "stacked_softmax_combine": (time_softmax_combine, check_softmax_combine)}
+# kernels timed at every shape a path launched them with (not only its two
+# most launched)
+TIME_ALL = ("relation_agg", "stacked_softmax_combine")
 
 
 def kernel_table(paths: dict, errs: dict, device):
@@ -821,7 +1207,8 @@ def kernel_table(paths: dict, errs: dict, device):
         for path, shapes in paths.items():
             launched = sum(shapes[name].values())
             # the two most launched shapes of the path; among those, the most work first
-            cases = sorted(shapes[name].items(), key=lambda sc: (-sc[1], -math.prod(sc[0])))[:2]
+            cases = sorted(shapes[name].items(), key=lambda sc: (-sc[1], -math.prod(sc[0])))
+            cases = cases if name in TIME_ALL else cases[:2]
             timed[path] = dict(launches=launched, timed=[])
             for shape, count in cases:
                 t = timer(shape, device)
@@ -858,6 +1245,19 @@ ATTN_RAGGED = [(5, 19, 4, 23, 4, 8, 3), (4, 33, 1, 789, 4, 16, 3), (3, 130, 3, 1
                (2, 7, 16, 37, 2, 8, 2), (3, 45, 64, 100, 4, 16, 2), (2, 9, 100, 33, 4, 16, 2),
                (3, 50, 5, 70, 3, 24, 2), (6, 4096, 3, 128, 4, 16, 6),
                (2, 1024, 16, 128, 4, 16, 2)]
+
+
+# (n, f, d_in, d_out) of kernel 6: tests/test_kernels.py's AGG_SHAPES, one
+# row, and the raf R-GCN step's three shapes at batch 1024
+RA_SHAPES = [(200, 25, 128, 64), (64, 20, 64, 64), (64, 4, 789, 64), (128, 20, 64, 349),
+             (5, 3, 7, 16), (256, 10, 1024, 64), (1, 1, 1, 1), (1024, 4, 64, 64),
+             (4096, 3, 128, 64), (4096, 3, 64, 64)]
+# (rb, n, f, nh, dh) of kernel 3: tests/test_stacked_kernels.py's cases,
+# f in {16, 64, 100} at ragged n, H = 72 and H = 320 (> 256 threads), the
+# training leaf and top and the serving block
+SC_SHAPES = [(3, 21, 4, 2, 5), (1, 1, 1, 1, 1), (5, 130, 3, 4, 16), (2, 7, 16, 4, 16),
+             (3, 45, 64, 4, 16), (2, 9, 100, 4, 16), (3, 50, 5, 3, 24), (2, 33, 3, 8, 40),
+             (6, 4096, 3, 4, 16), (3, 1024, 4, 4, 16), (2, 1024, 16, 4, 16)]
 
 
 def main(argv=None) -> int:
@@ -931,6 +1331,16 @@ def main(argv=None) -> int:
             dshape = (rb, n, f, di, nh * dh, U, 0 if variant == "rgat" else U)
             errs["stacked_attn_dh"] = max(errs["stacked_attn_dh"],
                                           check_attn_dh(dshape, i, DEVICE))
+    # kernel 6 at the reference's AGG_SHAPES, the raf path's shapes and an
+    # all-masked case; kernel 3 at the reference's cases, f in {16, 64, 100},
+    # ragged n and the training and serving paths' shapes
+    for i, shape in enumerate(RA_SHAPES):
+        errs["relation_agg"] = max(errs["relation_agg"], check_relation_agg(shape, i, DEVICE))
+    errs["relation_agg"] = max(errs["relation_agg"],
+                               check_relation_agg((16, 5, 32, 8), 99, DEVICE, all_masked=True))
+    for i, shape in enumerate(SC_SHAPES):
+        errs["stacked_softmax_combine"] = max(errs["stacked_softmax_combine"],
+                                              check_softmax_combine(shape, i, DEVICE))
     log(f"  ok; max abs err {errs}")
 
     paths = {}
@@ -942,6 +1352,9 @@ def main(argv=None) -> int:
     log("== 6 R-GCN serving the trained state")
     paths["rgcn serving"] = run_serving(sess, g, report)
     del sess
+    log(f"== 4c R-GCN through the dict-form executors vanilla and raf (scale {args.scale}, "
+        "batch 1024), raf resumed from its step-10 checkpoint")
+    paths["rgcn raf training"] = run_dense(args.scale, report, g)
 
     for model in ("rgat", "hgt"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
@@ -955,7 +1368,13 @@ def main(argv=None) -> int:
         log(f"== 6b {model} serving the trained state")
         paths[f"{model} serving"] = run_serving(sess, g, report, model)
         del sess
+    for model in ("rgat", "hgt"):
+        log(f"== 4d {model} training with the epilogue unfused (kernel 3), then infer_all")
+        paths[f"{model} unfused training"], paths[f"{model} unfused serving"] = run_unfused(
+            args.scale, report, g, model, report["training"][model]["losses"])
     order = [f"{m} {p}" for p in ("training", "serving") for m in ("rgcn", "rgat", "hgt")]
+    order += ["rgcn raf training"] + [f"{m} unfused {p}" for p in ("training", "serving")
+                                      for m in ("rgat", "hgt")]
     paths = {p: paths[p] for p in order}
 
     log("== 7 kernels at the shapes the training and serving paths launched them with")
@@ -968,8 +1387,12 @@ def main(argv=None) -> int:
     report["backward_ms"] = dict(shape=list(leaf), ms=back_ms)
 
     log(f"== 8 card vs CPU (scale {args.ref_scale}, batch 32)")
-    for model in ("rgcn", "rgat", "hgt"):
-        run_reference(args.ref_scale, model)
+    report["reference"] = {}
+    for model, executor, fuse in (("rgcn", "raf_spmd", True), ("rgat", "raf_spmd", True),
+                                  ("hgt", "raf_spmd", True), ("rgcn", "raf", True),
+                                  ("rgat", "raf_spmd", False)):
+        report["reference"][f"{model} {executor}{'' if fuse else ' unfused'}"] = run_reference(
+            args.ref_scale, model, executor=executor, fuse_epilogue=fuse)
     report["wall_s"] = time.perf_counter() - t_start
     log(f"  whole run {report['wall_s']:.1f} s")
 

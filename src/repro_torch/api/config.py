@@ -273,9 +273,10 @@ class KernelConfig:
 
     ``fuse_epilogue`` (R-GAT, HGT) selects the fused attention kernels
     (``stacked_attn_epilogue`` and its backward) when on; off, the
-    ``attn_parts`` factoring runs plain PyTorch on the CPU and raises on the
-    GPU, where its softmax + combine kernel is a later slice of the port, as
-    is the dict-form path ``relation_agg`` selects.  The explicit
+    ``attn_parts`` factoring runs the projections in torch ops and the
+    masked softmax + combine through ``stacked_softmax_combine``.
+    ``relation_agg`` routes the dict-form ``raf`` executor's R-GCN
+    aggregation through its kernel.  The explicit
     ``block_n`` / ``block_out`` / ``block_in`` overrides are launch
     parameters of the ``stacked_mean_linear`` forward (R-GCN's aggregation,
     the attention models' query side) beating its CUDA defaults

@@ -18,11 +18,26 @@ exposes graph / spec / assignment / engine / hgnn_cfg / adam_cfg / device):
       whether ``stage`` reads learnable tables that train
   ``loss_and_metrics(sess, plan, state, batch) -> (loss, metrics)``  eval only
 
-The port registers ``raf_spmd`` — the production SPMD executor, relation
-branches stacked per model shard, learnable features updated sparsely
-through the §6 cache.  The ``vanilla`` and ``raf`` executors (the dict-form
-``hgnn_loss`` and the ``relation_agg`` kernel) are a later slice, so
-``get()`` names what is available when asked for them.
+The port registers the reference's four:
+
+  * ``vanilla`` — the baseline execution model: one dense parameter bundle,
+    full-batch dict-form forward (``hgnn_loss``).  The correctness oracle:
+    it passes no kernel options, so by the reference's own design it
+    launches no aggregation kernel on the card (its AGG_r is each module's
+    ``aggregate`` in torch ops).
+  * ``raf`` — simulated multi-partition RAF (paper §4 Alg. 1): explicit
+    per-partition parameter dicts, partial aggregations summed in Python,
+    R-GCN's AGG_r through the ``relation_agg`` kernel.
+  * ``raf_spmd`` — the production SPMD executor: relation branches stacked
+    per model shard, learnable features updated sparsely through the §6
+    cache.
+  * ``serve`` — scores batches against the embedding store ``infer_all``
+    materialized; not a training executor.
+
+The two dense executors train the learnable tables (``model.train_learnable``)
+as dense leaves of the bundle under ``embed``, starting from the cache
+engine's rows, as the reference's do; the engine's own tables stay as they
+were.
 
 Register your own with ``@executors.register("name")``.
 """
@@ -35,6 +50,8 @@ from typing import Dict, Tuple, Type
 
 import numpy as np
 import torch
+
+from repro_torch.optim.adam import tree_map
 
 __all__ = ["Executor", "register", "get", "available", "apply_feature_grads"]
 
@@ -97,6 +114,155 @@ class Executor:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# --------------------------------------------------------------------------
+# shared pieces of the dense executors
+# --------------------------------------------------------------------------
+
+
+def _init_full_params(sess):
+    """Dense parameter bundle on the session's device, seeded identically
+    across executors (the name-seeded init makes partition-restricted inits
+    bit-identical — Prop 1)."""
+    from repro_torch.core.hgnn import init_hgnn_params
+
+    params = init_hgnn_params(sess.config.run.seed, sess.hgnn_cfg, sess.spec, sess.feat_dims)
+    return tree_map(lambda t: t.to(sess.device), params)
+
+
+def _engine_embed(sess) -> Dict[str, torch.Tensor]:
+    """Learnable tables as tensors on the session's device, copied from the
+    cache engine's authoritative rows, so every executor starts from the
+    same rows."""
+    return {t: torch.tensor(sess.engine.table(t), dtype=torch.float32, device=sess.device)
+            for t in sess.engine.learnable_types}
+
+
+def _lookup_tables(sess) -> Dict[str, torch.Tensor]:
+    """Feature tables visible to the dense executors: fixed features, plus —
+    when learnable training is frozen — the engine's learnable rows as
+    constants (otherwise those travel in the bundle and train)."""
+    if sess.config.model.train_learnable:
+        return sess.fixed_tables
+    return {**sess.fixed_tables, **_engine_embed(sess)}
+
+
+def _trainable(tree):
+    """The leaves of ``tree`` as fresh leaf tensors that take gradients."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+def _bundle_state(bundle) -> Dict:
+    """Executor state of a dense bundle: the bundle and zero Adam state."""
+    from repro_torch.optim.adam import adam_init
+
+    return {"bundle": bundle, "opt": adam_init(bundle)}
+
+
+def _bundle_grads(bundle, loss):
+    """The gradient tree of ``loss`` for every leaf of ``bundle``; a leaf the
+    loss does not read gets zeros, as ``jax.grad`` gives it."""
+    from repro_torch.optim.adam import tree_leaves
+
+    leaves = tree_leaves(bundle)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_id = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, got)}
+    return tree_map(lambda p: by_id[id(p)], bundle)
+
+
+def _bundle_step_staged(sess, plan, state, arrs):
+    """The dense-bundle device step on staged arrays: forward over the
+    bundle's leaves made trainable, backward, Adam over the whole bundle;
+    timed to the loss on the host (staging excluded)."""
+    from repro_torch.optim.adam import adam_update
+
+    t0 = time.perf_counter()
+    bundle = _trainable(state["bundle"])
+    loss = plan.loss(bundle, arrs)
+    grads = _bundle_grads(bundle, loss)
+    with torch.no_grad():
+        bundle, opt = adam_update(sess.adam_cfg, bundle, grads, state["opt"])
+    _sync(sess.device)
+    loss = float(loss.detach())
+    return {"bundle": bundle, "opt": opt}, loss, time.perf_counter() - t0
+
+
+class _DenseExecutor(Executor):
+    """The protocol shared by ``vanilla`` and ``raf``: staging copies the
+    batch's index arrays to the device, the step differentiates
+    ``plan.loss``."""
+
+    def stage(self, sess, plan, batch):
+        from repro_torch.core.hgnn import batch_to_arrays
+
+        return batch_to_arrays(batch, sess.device)
+
+    def step_staged(self, sess, plan, state, batch, arrays):
+        return _bundle_step_staged(sess, plan, state, arrays)
+
+    def loss_and_metrics(self, sess, plan, state, batch):
+        with torch.no_grad():
+            loss = float(plan.loss(state["bundle"], self.stage(sess, plan, batch)))
+        return loss, {"loss": loss}
+
+
+@register("vanilla")
+class VanillaExecutor(_DenseExecutor):
+    def build_plan(self, sess):
+        from repro_torch.core.hgnn import hgnn_loss
+
+        cfg, spec, tables = sess.hgnn_cfg, sess.spec, _lookup_tables(sess)
+        return SimpleNamespace(
+            loss=lambda bundle, arrs: hgnn_loss(cfg, bundle, tables, arrs, spec))
+
+    def init_state(self, sess, plan):
+        bundle = _init_full_params(sess)
+        if sess.config.model.train_learnable:
+            bundle["embed"] = _engine_embed(sess)
+        return _bundle_state(bundle)
+
+
+@register("raf")
+class RafSimExecutor(_DenseExecutor):
+    def build_plan(self, sess):
+        from repro_torch.core.raf import raf_loss
+
+        cfg, spec, tables = sess.hgnn_cfg, sess.spec, _lookup_tables(sess)
+        assignment = sess.assignment
+        P = assignment.num_partitions
+        kernels = sess.config.kernels
+
+        def loss(bundle, arrs):
+            # one logical copy of the shared leaves (embed tables + head),
+            # merged into every partition's local relation parameters;
+            # autograd sums their gradients over the partitions
+            parts = [{**bundle["parts"][p], "embed": bundle.get("embed", {}),
+                      "head": bundle["head"]} for p in range(P)]
+            return raf_loss(cfg, parts, tables, arrs, spec, assignment, kernels)
+
+        return SimpleNamespace(loss=loss, num_partitions=P)
+
+    def init_state(self, sess, plan):
+        from repro_torch.core.hgnn import init_hgnn_params
+
+        full = _init_full_params(sess)
+        parts = []
+        for p in range(plan.num_partitions):
+            own = init_hgnn_params(sess.config.run.seed, sess.hgnn_cfg, sess.spec,
+                                   sess.feat_dims,
+                                   restrict_rels=sess.assignment.relations_of(p, sess.spec))
+            parts.append(tree_map(lambda t: t.to(sess.device),
+                                  {k: own[k] for k in ("rel", "ntype", "etype")}))
+        bundle = {"parts": parts, "head": full["head"]}
+        if sess.config.model.train_learnable:
+            bundle["embed"] = _engine_embed(sess)
+        return _bundle_state(bundle)
+
+
+# --------------------------------------------------------------------------
+# raf_spmd — the production executor + cache-mediated feature updates
+# --------------------------------------------------------------------------
 
 
 @register("raf_spmd")
@@ -182,6 +348,55 @@ class RafSpmdExecutor(Executor):
                 plan.plan, state["stacks"], self.stage(sess, plan, batch),
                 local_combine=plan.local_combine, kernels=sess.config.kernels))
         return loss, {"loss": loss, "hit_rates": sess.engine.cache.hit_rates()}
+
+
+# --------------------------------------------------------------------------
+# serve — the online inference tier (materialized embeddings, no training)
+# --------------------------------------------------------------------------
+
+
+@register("serve")
+class ServeExecutor(Executor):
+    """Score batches against the materialized embedding store.
+
+    Not a training executor: ``step``/``step_staged`` raise.  ``build_plan``
+    requires :meth:`Heta.infer_all` to have materialized the store;
+    ``loss_and_metrics`` answers through the micro-batching
+    :class:`~repro_torch.serve.server.EmbeddingServer` (the same NLL as the
+    training executors), reporting per-type serve-cache hit rates."""
+
+    def build_plan(self, sess):
+        from repro_torch.api.session import HetaStageError
+
+        store = getattr(sess, "embedding_store", None)
+        if store is None:
+            raise HetaStageError(
+                "the 'serve' executor requires materialized embeddings; run "
+                "session.infer_all() (after compile+fit with a training "
+                "executor) before compile(executor='serve')")
+        return SimpleNamespace(server=sess.serve(), store=store)
+
+    def init_state(self, sess, plan):
+        return {}
+
+    def stage(self, sess, plan, batch):
+        return None
+
+    def step_staged(self, sess, plan, state, batch, arrays):
+        from repro_torch.api.session import HetaStageError
+
+        raise HetaStageError(
+            "the 'serve' executor is inference-only; train with a training "
+            "executor (e.g. raf_spmd), then infer_all() + serve()")
+
+    def loss_and_metrics(self, sess, plan, state, batch):
+        res = plan.server.query(batch.seeds)
+        logits = res.scores.astype(np.float64)
+        logits -= logits.max(axis=-1, keepdims=True)
+        logp = logits - np.log(np.exp(logits).sum(axis=-1, keepdims=True))
+        loss = float(-logp[np.arange(len(batch.seeds)), batch.labels].mean())
+        return loss, {"loss": loss, "hit_rates": plan.server.cache.hit_rates(),
+                      "latency_ms": res.latency_ms}
 
 
 def apply_feature_grads(engine, plan, batch, gf: Dict) -> None:

@@ -14,9 +14,11 @@
 
 Calling a stage out of order raises :class:`HetaStageError` with the missing
 prerequisite; ``run()`` executes whatever stages remain and then ``fit()``.
-``compile(state=...)`` takes parameter stacks from elsewhere
-(``repro_torch.convert.stacks_from_reference``) instead of the port's own
-init.  ``fit`` and ``evaluate`` run the serial loop: the async pipeline
+``comm_report()`` (after ``partition()``) gives the §4 per-batch byte
+accounting of the execution models.  ``compile(state=...)`` takes parameter
+stacks (``raf_spmd``) or a dict-form bundle (``vanilla``, ``raf``) from
+elsewhere (``repro_torch.convert``) instead of the port's own init.
+``fit`` and ``evaluate`` run the serial loop: the async pipeline
 (``pipeline.enabled``), its sampler worker pool and the data-parallel
 scale-out tier (``scale.enabled``) are later slices of the port, and asking
 for them raises ``NotImplementedError``.
@@ -33,11 +35,12 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.api import executors as _executors
 from repro_torch.api.config import HetaConfig
 from repro_torch.device import resolve_device
-from repro_torch.optim.adam import AdamConfig, adam_init, tree_map
+from repro_torch.optim.adam import AdamConfig, adam_init, tree_leaves, tree_map
 
 __all__ = ["Heta", "HetaStageError", "PartitionReport", "CacheReport"]
 
@@ -57,6 +60,14 @@ class PartitionReport:
     mp: object  # MetaPartitioning
     spec: object  # SampleSpec
     assignment: object  # BranchAssignment (pre-fold)
+
+    def raf_bytes(self, batch_size: int, hidden: int, bytes_per_elem: int = 2,
+                  style: str = "designated") -> int:
+        """Per-batch RAF exchange bytes under this assignment (paper §4)."""
+        from repro_torch.core.raf import raf_comm_bytes
+
+        return raf_comm_bytes(self.spec, self.assignment, batch_size, hidden,
+                              bytes_per_elem, style=style)
 
 
 @dataclasses.dataclass
@@ -91,6 +102,7 @@ class Heta:
         self.graph = None
         self.hgnn_cfg = None
         self.feat_dims = None
+        self.fixed_tables = None
         self.mp = None
         self.spec = None
         self.assignment = None
@@ -138,6 +150,9 @@ class Heta:
             t: self.graph.feat_dim(t)
             for t in self.graph.num_nodes if self.graph.feat_dim(t)
         }
+        # the fixed features on the device, read by the dense executors
+        self.fixed_tables = {t: torch.from_numpy(np.ascontiguousarray(f)).to(self.device)
+                             for t, f in self.graph.features.items()}
         self.hgnn_cfg = cfg.model.to_hgnn_config(cfg.num_layers, self.graph.num_classes)
         self.stage_times["build_graph"] = time.perf_counter() - t0
         return self.graph
@@ -173,6 +188,72 @@ class Heta:
             spec=self.spec,
             assignment=self.assignment,
         )
+
+    def comm_report(self, bytes_per_elem: int = 2, hidden: Optional[int] = None,
+                    include_topology: bool = True) -> Dict[str, int]:
+        """Per-batch communication accounting of the three execution models
+        (the paper's §4 worked example: 92.3 -> 8.0 -> 0.5 MB), the
+        reference's integers.
+
+        Returns bytes for ``vanilla_feat`` (edge-cut feature fetching),
+        ``vanilla_update`` (remote learnable-row read + write), ``raf_naive``
+        (RAF, random placement) and ``raf_meta`` (RAF under the §5 meta
+        placement, computed from ``assign_branches`` even when this
+        session's placement is naive).  With ``scale.num_trainers > 1`` or an
+        explicit ``scale.hierarchy``, the ``hier_*`` keys of
+        :func:`repro_torch.core.comm.hierarchical_comm_bytes` ride along;
+        their gradient bytes are those of the compiled parameters."""
+        from repro_torch.core.comm import vanilla_comm_bytes, vanilla_update_bytes
+        from repro_torch.core.meta_partition import random_edge_cut
+        from repro_torch.core.raf import (assign_branches, raf_comm_bytes,
+                                          random_branch_assignment)
+        from repro_torch.graph.sampler import NeighborSampler
+
+        self._require("spec", "partition", "comm_report")
+        cfg = self.config
+        B = cfg.data.batch_size
+        h = hidden or cfg.model.hidden
+        P = cfg.partition.num_partitions
+        seed = cfg.run.seed
+        batch = NeighborSampler(self.graph, self.spec, B, seed=seed).sample_batch(
+            self.graph.train_nodes[:B])
+        cut = random_edge_cut(self.graph, P, seed=seed)
+        ld = cfg.model.learnable_dim
+        out = {
+            "vanilla_feat": vanilla_comm_bytes(
+                batch, cut, self.feat_dims, learnable_dim=ld,
+                bytes_per_elem=bytes_per_elem, include_topology=include_topology),
+            "vanilla_update": vanilla_update_bytes(
+                batch, cut, self.graph, learnable_dim=ld, bytes_per_elem=bytes_per_elem),
+            "raf_naive": raf_comm_bytes(
+                self.spec, random_branch_assignment(self.spec, P, seed=seed + 1),
+                B, h, bytes_per_elem),
+            "raf_meta": raf_comm_bytes(
+                self.spec,
+                self.assignment if self.meta_local else assign_branches(self.spec, self.mp),
+                B, h, bytes_per_elem),
+        }
+        sc = cfg.scale
+        if sc.enabled or sc.hierarchy is not None:
+            from repro_torch.core.comm import hierarchical_comm_bytes
+            from repro_torch.core.meta_partition import hierarchical_partition
+
+            g, s = sc.resolved_hierarchy
+            hier = hierarchical_partition(self.graph, g, s, num_layers=cfg.num_layers,
+                                          seed=seed)
+            grad_bytes = 0
+            if isinstance(self.state, dict):
+                # the data-parallel all-reduce moves one gradient set (= the
+                # parameters' bytes)
+                params = self.state.get("stacks") or self.state.get("bundle")
+                if params is not None:
+                    grad_bytes = int(sum(leaf.numel() * leaf.element_size()
+                                         for leaf in tree_leaves(params)))
+            rep = hierarchical_comm_bytes(
+                batch, hier, h, feat_dims=self.feat_dims, learnable_dim=ld,
+                bytes_per_elem=bytes_per_elem, grad_bytes=grad_bytes)
+            out.update({f"hier_{k}": int(v) for k, v in rep.items()})
+        return out
 
     # -- stage 3: §6 profiling + cache ---------------------------------------
 
@@ -220,10 +301,12 @@ class Heta:
         """Build the executor plan, its initial state and the training
         sampler.
 
-        ``state`` (``{"stacks": ...}``, e.g. from
-        :func:`repro_torch.convert.stacks_from_reference`) replaces the
-        port's own parameter init; its tensors are moved to the session's
-        device, and Adam state starts at zero."""
+        ``state`` replaces the port's own parameter init: ``{"stacks": ...}``
+        for ``raf_spmd`` (e.g. from
+        :func:`repro_torch.convert.stacks_from_reference`) or ``{"bundle":
+        ...}`` for ``vanilla``/``raf`` (from
+        :func:`repro_torch.convert.bundle_from_reference`).  Its tensors are
+        moved to the session's device, and Adam state starts at zero."""
         from repro_torch.graph.sampler import NeighborSampler
 
         self._require("engine", "profile_and_cache", "compile")
@@ -233,6 +316,9 @@ class Heta:
         self.plan = self.executor.build_plan(self)
         if state is None:
             self.state = self.executor.init_state(self, self.plan)
+        elif "bundle" in state:
+            self.state = _executors._bundle_state(
+                tree_map(lambda v: v.to(self.device), state["bundle"]))
         else:
             stacks = tree_map(lambda v: v.to(self.device), state["stacks"])
             self.state = {"stacks": stacks, "opt": adam_init(stacks)}
@@ -566,6 +652,11 @@ class Heta:
         from repro_torch.serve.full_graph import infer_all as _infer_all
 
         self._require("state", "compile", "infer_all")
+        if not isinstance(self.state, dict) or self.state.get("stacks") is None:
+            raise HetaStageError(
+                f"infer_all() needs the stacked SPMD plan, but executor "
+                f"{self.executor.name!r} does not expose one; "
+                "compile(executor='raf_spmd') first")
         t0 = time.perf_counter()
         scfg = self.config.serve
         store = _infer_all(

@@ -1,11 +1,13 @@
-"""Checkpoints: a tree of nested dicts flattened to one npz + a JSON manifest.
+"""Checkpoints: a tree of nested dicts and lists flattened to one npz + a JSON
+manifest.
 
 The format, the commit order and the checks are the reference's
 (``repro/checkpoint/ckpt.py``), so a checkpoint written by the reference
 session restores into the port and the other way round:
 
-  * leaves are keyed by their path, the dict keys joined with ``"/"``
-    (``state/stacks/layer1/w``, ``state/opt/step``, ``embed/tables/author``);
+  * leaves are keyed by their path, the dict keys and list indices joined
+    with ``"/"`` (``state/stacks/layer1/w``, ``state/opt/step``,
+    ``state/bundle/parts/0/rel/...``, ``embed/tables/author``);
   * the npz payload is written to a temp file and renamed first, then the
     manifest (temp + rename) last — the manifest's rename is the commit
     point, so a crash leaves a complete pair or junk that
@@ -44,15 +46,21 @@ class CheckpointError(RuntimeError):
 
 
 def _items(tree: Any, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
-    """(path key, leaf) of nested dicts, in sorted key order."""
+    """(path key, leaf) of nested dicts (sorted key order), lists and tuples
+    (in order, keyed by index)."""
     if isinstance(tree, dict):
         return [item for k in sorted(tree) for item in _items(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree) for item in _items(v, prefix + (str(i),))]
     return [("/".join(prefix), tree)]
 
 
 def _unflatten_like(tree: Any, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Any:
     if isinstance(tree, dict):
         return {k: _unflatten_like(v, leaves, prefix + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten_like(v, leaves, prefix + (str(i),))
+                          for i, v in enumerate(tree))
     return leaves["/".join(prefix)]
 
 
@@ -125,8 +133,9 @@ def read_manifest(directory: str, step: int, name: str = "ckpt") -> Dict:
 def _restore_leaf(arr: np.ndarray, leaf: Any) -> Any:
     if not torch.is_tensor(leaf):
         return arr
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=leaf.device,
-                                                          dtype=leaf.dtype)
+    # ascontiguousarray turns a 0-d array (Adam's step) into shape (1,)
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape)).to(
+        device=leaf.device, dtype=leaf.dtype)
 
 
 def load_checkpoint(directory: str, step: int, template: Any,

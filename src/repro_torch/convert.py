@@ -9,6 +9,9 @@ needs neither JAX nor the reference package:
     stacks_np = {layer: {leaf: np.asarray(v) for leaf, v in entry.items()}
                  for layer, entry in ref_sess.state["stacks"].items()}
     port_sess.compile(state={"stacks": stacks_from_reference(stacks_np, "cpu")})
+
+The dict-form executors (``vanilla``, ``raf``) take a parameter bundle
+instead (:func:`bundle_from_reference`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["stacks_from_reference", "tables_from_reference"]
+__all__ = ["stacks_from_reference", "bundle_from_reference", "tables_from_reference"]
 
 
 def stacks_from_reference(stacks_np: Dict, device=None) -> Dict:
@@ -38,6 +41,26 @@ def stacks_from_reference(stacks_np: Dict, device=None) -> Dict:
         }
         for layer, entry in stacks_np.items()
     }
+
+
+def bundle_from_reference(bundle_np: Dict, device=None) -> Dict:
+    """A dict-form parameter bundle of numpy arrays -> the same tree of
+    float32 tensors on ``device`` (``None``: the GPU).  ``vanilla``'s bundle
+    is ``{"rel", "ntype", "etype", "head"[, "embed"]}``; ``raf``'s is
+    ``{"parts": [{"rel", "ntype", "etype"}, ...], "head"[, "embed"]}``, its
+    parts a list as in the reference."""
+    if "head" not in bundle_np or not ("parts" in bundle_np or "rel" in bundle_np):
+        raise ValueError(f"expected a dict-form bundle, got keys {sorted(bundle_np)}")
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
+        return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+    return conv(bundle_np)
 
 
 def tables_from_reference(tables_np: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -6,17 +6,23 @@ target-node batch entirely locally, and only the partials cross partition
 boundaries.  This module keeps the branch -> partition assignment the SPMD
 plan (``repro_torch.core.raf_spmd``) is built from: the meta-partitioning
 placement of Algorithm 2 and the naive random placement of the ablation.
-The simulated multi-partition forward and the communication accounting
-(the dict-form ``raf`` executor) are a later slice of the port.
+
+:func:`raf_forward` / :func:`raf_loss` are the *simulated* multi-partition
+execution of Alg. 1 (the dict-form ``raf`` executor): partitions are
+explicit Python structure on one device, and the cross-partition exchange
+is an actual sum of per-partition partials.  :func:`raf_comm_bytes` counts
+the bytes that exchange moves per batch (paper §4), in numpy alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core.hgnn import BatchArrays, HGNNConfig, Params, hgnn_forward, nll_loss
 from repro_torch.core.meta_partition import MetaPartitioning
 from repro_torch.graph.sampler import SampleSpec
 
@@ -24,6 +30,9 @@ __all__ = [
     "BranchAssignment",
     "assign_branches",
     "random_branch_assignment",
+    "raf_forward",
+    "raf_loss",
+    "raf_comm_bytes",
 ]
 
 
@@ -137,3 +146,93 @@ def random_branch_assignment(
         for lv in spec.levels
     ]
     return BranchAssignment(owner, num_partitions).attach_parents(spec)
+
+
+# --------------------------------------------------------------------------
+# simulated multi-partition execution
+# --------------------------------------------------------------------------
+
+
+def raf_forward(
+    cfg: HGNNConfig,
+    params_parts: Sequence[Params],
+    tables: Dict[str, torch.Tensor],
+    batch: BatchArrays,
+    spec: SampleSpec,
+    assignment: BranchAssignment,
+    kernels=None,
+) -> torch.Tensor:
+    """Alg. 1 forward: per-partition partial aggregations, then AGG_all + head.
+
+    ``params_parts[p]`` holds partition p's relation parameters (and the
+    learnable-feature tables under ``params['embed']``).  The designated
+    worker's extra work (loss + head) is partition 0 by convention.
+    ``kernels`` opts the per-relation aggregations into the kernel path
+    (see ``repro_torch.core.hgnn.agg_relation``)."""
+    partials = [
+        hgnn_forward(cfg, params, tables, batch, spec, branch_mask=assignment.branch_mask(p),
+                     return_partial=True, kernels=kernels)
+        for p, params in enumerate(params_parts)
+    ]
+    root = sum(partials)  # AGG_all (cross-relation aggregation, paper Eq. 1)
+    head = params_parts[0]["head"]
+    return torch.relu(root) @ head["w"] + head["b"]
+
+
+def raf_loss(
+    cfg: HGNNConfig,
+    params_parts: Sequence[Params],
+    tables: Dict[str, torch.Tensor],
+    batch: BatchArrays,
+    spec: SampleSpec,
+    assignment: BranchAssignment,
+    kernels=None,
+) -> torch.Tensor:
+    logits = raf_forward(cfg, params_parts, tables, batch, spec, assignment, kernels)
+    return nll_loss(logits, batch.labels)
+
+
+# --------------------------------------------------------------------------
+# communication accounting (paper §4 "Communication Reduction" example)
+# --------------------------------------------------------------------------
+
+
+def raf_comm_bytes(
+    spec: SampleSpec,
+    assignment: BranchAssignment,
+    batch_size: int,
+    hidden: int,
+    bytes_per_elem: int = 2,
+    style: str = "designated",
+) -> int:
+    """Bytes RAF moves for one batch: root-level partial exchange + any
+    inner-level partials whose branch sits on a different partition than its
+    parent (zero under meta-partitioning, Prop 2 / §5 Step 2).
+
+    Forward partials and backward gradients are symmetric, hence the x2.
+    ``designated``: (P-1) workers send to / receive from the designated one.
+    ``allreduce``: bidirectional ring all-reduce moves 2·(P-1)/P x size per
+    device; total wire bytes across the job are comparable — the designated
+    style is the default, as in the paper's accounting."""
+    P = assignment.num_partitions
+    if P <= 1:
+        return 0
+    n_at = {0: batch_size}
+    n = batch_size
+    for d, f in enumerate(spec.fanouts, start=1):
+        n *= f
+        n_at[d] = n
+
+    total_elems = 0
+    # root-level exchange: every non-designated partition with >= 1 root
+    # branch sends its [B, hidden] partial (fwd) and receives its gradient
+    parts_with_root = {int(p) for p in assignment.owner[0]}
+    senders = len(parts_with_root - {0}) if style == "designated" else P - 1
+    total_elems += 2 * senders * batch_size * hidden
+    # inner-level violations (only non-meta placements have any)
+    for d in range(2, spec.num_layers + 1):
+        parents = assignment._parents[d - 1]
+        for b in range(len(assignment.owner[d - 1])):
+            if assignment.owner[d - 1][b] != assignment.owner[d - 2][parents[b]]:
+                total_elems += 2 * n_at[d - 1] * hidden
+    return int(total_elems * bytes_per_elem)

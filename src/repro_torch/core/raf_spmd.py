@@ -31,7 +31,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.hgnn import HGNNConfig, Params, rel_context
+from repro_torch.core.hgnn import HGNNConfig, Params, nll_loss, rel_context
 from repro_torch.core.raf import BranchAssignment
 from repro_torch.core.relmod import SCOPE_CONTAINER, storage_key
 from repro_torch.data.staging import StackRecipe, stack_batch_host
@@ -435,9 +435,7 @@ def loss_fn(plan: StackedPlan, stacks: Dict, arrays: Dict,
             local_combine: bool = True, kernels=None) -> torch.Tensor:
     """Mean NLL of the seeds' labels under a float32 ``log_softmax``."""
     logits = raf_spmd_logits(plan, stacks, arrays, local_combine, kernels)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, 1, arrays["labels"].to(torch.long)[:, None])
-    return nll.mean()
+    return nll_loss(logits, arrays["labels"].to(torch.long))
 
 
 # --------------------------------------------------------------------------

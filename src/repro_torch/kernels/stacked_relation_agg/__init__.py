@@ -2,7 +2,8 @@
 AGG_r for every branch slot, weights read straight from the ``[U, ...]``
 parameter stacks (``csrc/stacked_mean_linear.cu`` for R-GCN and its
 backward ``csrc/stacked_mean_linear_dh.cu``; ``csrc/stacked_attn_epilogue.cu``
-for R-GAT and HGT and its backward ``csrc/stacked_attn_dh.cu``)."""
+for R-GAT and HGT and its backward ``csrc/stacked_attn_dh.cu``; with the
+epilogue unfused, ``csrc/stacked_softmax_combine.cu``)."""
 
 from repro_torch.kernels.stacked_relation_agg.ops import (  # noqa: F401
     FanoutTooWideError,
@@ -19,6 +20,7 @@ from repro_torch.kernels.stacked_relation_agg.ops import (  # noqa: F401
     stacked_mean_linear_dh,
     stacked_mean_linear_dh_ref,
     stacked_mean_linear_ref,
+    stacked_softmax_combine,
     stacked_softmax_combine_ref,
     stage_slot_u,
     take_slots,

@@ -10,9 +10,9 @@ attention kernels and their autograd seams.
     query-side projection through :func:`stacked_mean_linear` at f = 1
     (:func:`_epilogue_linear`), then :func:`stacked_attn_epilogue`;
   * ``fused == "softmax_combine"`` with ``fuse_epilogue`` off -> the
-    ``attn_parts`` factoring: plain PyTorch on CPU tensors; on CUDA tensors
-    it raises, since its masked softmax + combine is kernel 3
-    (``stacked_softmax_combine_pallas``), which a later slice ports;
+    ``attn_parts`` factoring: the module's projections in torch ops on
+    per-slot weights, then :func:`stacked_softmax_combine`, the masked
+    softmax + head-wise combine (``csrc/stacked_softmax_combine.cu``);
 
 and anything else, or the toggle off, goes to the gather-then-vmap oracle
 (:func:`~repro_torch.kernels.stacked_relation_agg.ref.stacked_agg_ref`),
@@ -51,6 +51,13 @@ exact (by 1 or 0), so the only difference from the reference's
     summed into stack form with :func:`segment_sum`.  The small per-slot
     leaves (R-GAT's ``a_src``/``a_dst``/``b``) are gathered with
     :func:`take_slots`, whose backward is the same deterministic slot sum.
+
+:func:`stacked_softmax_combine` runs through :class:`_StackedSoftmaxCombine`
+(the reference's ``_stacked_sc`` custom VJP, ``ops.py:203-257``): the
+forward is the kernel ``csrc/stacked_softmax_combine.cu`` (plain version
+:func:`stacked_softmax_combine_ref` on the CPU), the backward the
+reference's closed-form softmax Jacobian in torch ops from the recomputed
+probabilities.  The JAX package has no backward kernel for it.
 """
 
 from __future__ import annotations
@@ -89,17 +96,21 @@ __all__ = [
     "stacked_attn_epilogue_ref",
     "stacked_attn_dh",
     "stacked_attn_dh_ref",
+    "stacked_softmax_combine",
     "stacked_softmax_combine_ref",
+    "softmax_combine_forward",
     "attn_slots",
     "attn_rows",
     "take_slots",
     "launch_attn_epilogue",
     "launch_attn_dh",
+    "launch_softmax_combine",
     "FanoutTooWideError",
     "INFO",
     "INFO_DH",
     "INFO_AE",
     "INFO_ADH",
+    "INFO_SC",
 ]
 
 INFO = register_kernel(
@@ -122,11 +133,18 @@ INFO_ADH = register_kernel(
     source="src/repro_torch/kernels/csrc/stacked_attn_dh.cu",
     replaces="src/repro/kernels/stacked_relation_agg/kernel.py:452",
 )
+INFO_SC = register_kernel(
+    "stacked_softmax_combine",
+    source="src/repro_torch/kernels/csrc/stacked_softmax_combine.cu",
+    replaces="src/repro/kernels/stacked_relation_agg/kernel.py:227",
+)
 _FN = None
 _DH_FN = None
+_SC_FN = None
 _AE_FN = None
 _ADH_FN = None
-_THREADS, _MAX_ACC = 256, 16  # must match csrc/stacked_mean_linear.cu
+# must match csrc/stacked_mean_linear.cu; _THREADS also stacked_softmax_combine.cu
+_THREADS, _MAX_ACC = 256, 16
 _DH_MAX_ROWS = 16  # must match csrc/stacked_mean_linear_dh.cu (kMaxRows)
 # must match csrc/stacked_attn_epilogue.cu and csrc/stacked_attn_dh.cu:
 # the fixed 64 x 64 tiles, the largest d_in / H chunk, and the opt-in
@@ -541,9 +559,9 @@ def stacked_attn_dh_ref(dz, dv, we, wv, us) -> torch.Tensor:
 
 
 def stacked_softmax_combine_ref(e, mask, v) -> torch.Tensor:
-    """The plain version of kernel 3 (``stacked_softmax_combine_pallas``,
-    not ported yet): masked softmax over f of ``e`` ``[rb, n, f, nh]``, then
-    the head-wise combine with ``v`` ``[rb, n, f, nh, dh]``."""
+    """The plain version of ``csrc/stacked_softmax_combine.cu``: masked
+    softmax over f of ``e`` ``[rb, n, f, nh]``, then the head-wise combine
+    with ``v`` ``[rb, n, f, nh, dh]`` -> ``[rb, n, nh * dh]``."""
     rb, n, f, nh, dh = v.shape
     alpha = masked_softmax(e, mask.bool()[..., None], axis=2)
     return torch.einsum("rnfh,rnfhd->rnhd", alpha, v).reshape(rb, n, nh * dh)
@@ -860,23 +878,108 @@ def _is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def _sc_kernel():
+    global _SC_FN
+    if _SC_FN is None:
+        from repro_torch.kernels.build import load
+
+        fn = load("stacked_softmax_combine").stacked_softmax_combine_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 5 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _SC_FN = fn
+    return _SC_FN
+
+
+def softmax_combine_rows(head_width: int) -> int:
+    """Destination rows per block of ``csrc/stacked_softmax_combine.cu``:
+    one thread per (row, column) pair of its 256 threads, at least one row."""
+    return max(1, _THREADS // head_width)
+
+
+def launch_softmax_combine(e, mask_u8, v, out, rows) -> None:
+    """One raw launch on operands already checked and on ``e``'s device
+    (``v`` ``[rb, n, f, nh, dh]``, ``out`` allocated).  Not counted:
+    production calls go through :func:`softmax_combine_forward`."""
+    rb, n, f, nh, dh = v.shape
+    with torch.cuda.device(e.device):
+        status = _sc_kernel()(e.data_ptr(), mask_u8.data_ptr(), v.data_ptr(), out.data_ptr(),
+                              rb, n, f, nh, dh, rows, cuda_stream(e.device))
+    check_launch(status, "stacked_softmax_combine")
+
+
+def softmax_combine_forward(e, mask, v) -> torch.Tensor:
+    """The masked softmax + combine forward: the kernel for CUDA tensors
+    (fp32, contiguous; anything else raises), the plain version for CPU
+    ones."""
+    op = "stacked_softmax_combine"
+    if v.dim() != 5 or e.shape != v.shape[:4] or mask.shape != v.shape[:3]:
+        raise ValueError(f"{op} shapes: e {tuple(e.shape)}, mask {tuple(mask.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if not _is_cuda(e):
+        if e.device.type != "cpu":
+            raise ValueError(f"{op}: unsupported device {e.device}")
+        return stacked_softmax_combine_ref(e, mask, v)
+    mask_u8 = _cuda_operands(op, e.device, (("e", e), ("mask", mask), ("v", v)), ("e", "v"),
+                             mask)
+    rb, n, f, nh, dh = v.shape
+    if rb > 65535:
+        raise ValueError(f"{op}: {rb} slots exceed the grid's 65535")
+    out = torch.empty((rb, n, nh * dh), dtype=torch.float32, device=e.device)
+    if min(rb, n, nh * dh) == 0:
+        return out
+    launch_softmax_combine(e, mask_u8, v, out, softmax_combine_rows(nh * dh))
+    INFO_SC.record((rb, n, f, nh, dh))
+    return out
+
+
+class _StackedSoftmaxCombine(torch.autograd.Function):
+    """Kernel forward + the closed-form softmax Jacobian of the reference's
+    ``_sc_vjp_bwd`` (probabilities recomputed, none saved)."""
+
+    @staticmethod
+    def forward(ctx, e, mask, v):
+        ctx.save_for_backward(e, mask, v)
+        return softmax_combine_forward(e, mask, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, mask, v = ctx.saved_tensors
+        rb, n, f, nh, dh = v.shape
+        alpha = masked_softmax(e, mask.bool()[..., None], axis=2)
+        gh = g.reshape(rb, n, nh, dh)
+        de = dv = None
+        if ctx.needs_input_grad[0]:
+            dalpha = torch.einsum("rnfhd,rnhd->rnfh", v, gh)
+            de = alpha * (dalpha - (alpha * dalpha).sum(dim=2, keepdim=True))
+        if ctx.needs_input_grad[2]:
+            dv = torch.einsum("rnfh,rnhd->rnfhd", alpha, gh)
+        return de, None, dv
+
+
+def stacked_softmax_combine(
+    e: torch.Tensor,  # [rb, n, f, nh] logits
+    mask: torch.Tensor,  # [rb, n, f] bool or uint8
+    v: torch.Tensor,  # [rb, n, f, nh, dh] values
+) -> torch.Tensor:
+    """Masked softmax over f of ``e``, then ``out[s, i, h] = sum_j alpha[s, i,
+    j, h] * v[s, i, j, h]`` -> ``[rb, n, nh * dh]``, differentiable in ``e``
+    and ``v`` (:class:`_StackedSoftmaxCombine`).  A fully masked row gives
+    zeros.  CUDA tensors launch ``csrc/stacked_softmax_combine.cu``; CPU
+    tensors run :func:`stacked_softmax_combine_ref`."""
+    # the kernel takes contiguous operands; attn_parts' einsums may return
+    # permuted views
+    return _StackedSoftmaxCombine.apply(e.contiguous(), mask, v.contiguous())
+
+
 def _attn_parts_agg(module, stacks, slot_u, h, q, mask) -> torch.Tensor:
     """The ``fuse_epilogue=False`` path: the module's ``attn_parts`` on
-    gathered per-slot weights, then the masked softmax + combine.  Plain
-    PyTorch on the CPU; CUDA tensors raise until kernel 3 is ported."""
-    if _is_cuda(h):
-        raise NotImplementedError(
-            "kernels.fuse_epilogue=False: its masked softmax + combine is kernel 3 "
-            "(stacked_softmax_combine_pallas, src/repro/kernels/stacked_relation_agg/"
-            "kernel.py:227), which a later slice of the port ports; on the GPU keep "
-            "fuse_epilogue=True (the fused kernels stacked_attn_epilogue and "
-            "stacked_attn_dh)")
+    per-slot weights (gathered with :func:`take_slots`, so their gradients
+    sum back in a fixed order), then :func:`stacked_softmax_combine`."""
     scope_of = {s.name: s.scope for s in module.specs}
-    p_slots = {name: stacks[name][_slot_index(slot_u[scope_of[name]], stacks[name].shape[0],
-                                              stacks[name].device)]
-               for name in stacks}
+    p_slots = {name: take_slots(stacks[name], slot_u[scope_of[name]]) for name in stacks}
     e, v = torch.func.vmap(module.attn_parts)(p_slots, h, q)
-    out = stacked_softmax_combine_ref(e, mask, v)
+    out = stacked_softmax_combine(e, mask, v)
     bias = module.attn_bias(p_slots)
     return out if bias is None else out + bias[:, None, :]
 

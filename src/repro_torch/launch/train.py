@@ -10,6 +10,7 @@ Usage:
   python -m repro_torch.launch.train --scale 0.1 --batch-size 1024
   python -m repro_torch.launch.train --model hgt --scale 0.1 --batch-size 1024
   python -m repro_torch.launch.train --device cpu --scale 0.002 --steps 2
+  python -m repro_torch.launch.train --executor raf --scale 0.1 --batch-size 1024
 
 Prints per-step losses, then the result dict as JSON and the final loss.
 The reference CLI's ``--shm-cleanup`` has no counterpart: the port has no

@@ -14,8 +14,10 @@ Two entry points, as in the reference package:
 The two forms differ on purpose (they are the reference's two formulas);
 each is kept as it is.  Neither uses ``torch.optim``: the optimizer state
 is a plain tree ``{"m": tree, "v": tree, "step": int32 scalar}``, so a
-checkpoint holds the same keys as the reference's.  Tree leaves are visited
-in sorted key order, the order JAX flattens a dict in.
+checkpoint holds the same keys as the reference's.  A tree is nested dicts,
+lists and tuples (the ``raf`` executor's bundle holds a list of partition
+dicts); leaves are visited as JAX flattens such a tree: dict keys in sorted
+order, lists and tuples in order.
 """
 
 from __future__ import annotations
@@ -40,16 +42,21 @@ class AdamConfig:
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of nested dicts (``rest`` share the structure)."""
+    """``fn`` over the leaves of nested dicts, lists and tuples (``rest``
+    share the structure)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """Leaves of nested dicts in sorted key order."""
+    """Leaves of nested dicts (sorted key order), lists and tuples (in order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -90,8 +97,15 @@ def adam_update(
             update = update + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - cfg.lr * lr_scale * update).to(p.dtype), m, v
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
-    pick = lambda i: tree_map(lambda triple: triple[i], out)  # noqa: E731
+    # one (param, m, v) triple per leaf, in the order tree_map visits them;
+    # each of the three trees is rebuilt by a second walk in that order
+    triples = []
+    tree_map(lambda *leaf: triples.append(upd(*leaf)), params, grads, state["m"], state["v"])
+
+    def pick(i):
+        it = iter(triples)
+        return tree_map(lambda _: next(it)[i], params)
+
     return pick(0), {"m": pick(1), "v": pick(2), "step": step}
 
 

@@ -240,9 +240,11 @@ def test_attention_clis_run_on_the_cpu(capsys):
 
 def test_unfused_attention_raises_on_cuda_tensors(monkeypatch):
     """``fuse_epilogue=False`` runs the attn_parts path: plain PyTorch on the
-    CPU, and on CUDA tensors a NotImplementedError that names kernel 3 —
-    never the plain version on the card.  The CUDA-tensor check is patched
-    here, as no card is present."""
+    CPU, the same logits as the fused path; and on CUDA tensors it reaches
+    kernel 3's launch (``stacked_softmax_combine``) once per level, never
+    its plain version and no NotImplementedError.  The CUDA-tensor check is
+    patched here, as no card is present, and the launch is a stand-in that
+    fills the output from the plain version of the operands."""
     sess = Heta(HetaConfig().updated(
         model=dict(model="rgat", hidden=32), data=dict(scale=0.002, fanouts=(3, 2),
                                                        batch_size=16),
@@ -257,10 +259,21 @@ def test_unfused_attention_raises_on_cuda_tensors(monkeypatch):
         want = raf_spmd.raf_spmd_logits(fused.plan.plan, fused.state["stacks"], arrays,
                                          kernels=fused.config.kernels)
     np.testing.assert_allclose(plain.numpy(), want.numpy(), atol=2e-5, rtol=0)
+    ref_version = sra.stacked_softmax_combine_ref
+    launched = []
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA-routed call")
+
+    def fake_launch(e, mask_u8, v, out, rows):
+        launched.append(tuple(v.shape))
+        out.copy_(ref_version(e, mask_u8.bool(), v))
+
     monkeypatch.setattr(sra, "_is_cuda", lambda t: True)
-    with pytest.raises(NotImplementedError, match="kernel 3.*stacked_softmax_combine_pallas"):
-        sess.fit(1)
-    with pytest.raises(NotImplementedError, match="kernel 3"):
-        sra.stacked_agg(sess.plan.plan.module, {}, {}, torch.zeros(1, 1, 1, 1), None,
-                        torch.ones(1, 1, 1, dtype=torch.bool),
-                        opts=KernelConfig(fuse_epilogue=False))
+    monkeypatch.setattr(sra, "stacked_softmax_combine_ref", refuse)
+    monkeypatch.setattr(sra, "launch_softmax_combine", fake_launch)
+    kops.reset_launch_counts()
+    sess.fit(1)
+    assert np.isfinite(sess.losses[-1])
+    assert len(launched) == 2 == kops.KERNELS["stacked_softmax_combine"].launches
+    assert kops.KERNELS["stacked_attn_epilogue"].launches == 0

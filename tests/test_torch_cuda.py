@@ -21,6 +21,7 @@ from repro_torch.api.config import KernelConfig
 from repro_torch.core.relmod import get_relation_module
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
+from repro_torch.kernels.relation_agg import ops as ra_ops
 from repro_torch.kernels.stacked_relation_agg import ops as sra
 from repro_torch.kernels.stacked_relation_agg import (
     FanoutTooWideError,
@@ -34,6 +35,8 @@ from repro_torch.kernels.stacked_relation_agg import (
     stacked_mean_linear_dh,
     stacked_mean_linear_dh_ref,
     stacked_mean_linear_ref,
+    stacked_softmax_combine,
+    stacked_softmax_combine_ref,
     stage_slot_u,
 )
 
@@ -382,7 +385,7 @@ def test_cuda_attention_kernels_refuse_what_they_do_not_take(cuda_device):
 def test_cuda_attention_never_reaches_a_plain_version(cuda_device, model, monkeypatch):
     """With every plain version made to raise, the fused path's forward and
     backward on CUDA tensors still run (through kernels 1, 2, 4 and 5), and
-    fuse_epilogue=False raises the named NotImplementedError (kernel 3)."""
+    so do fuse_epilogue=False's (through kernel 3, launched once)."""
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on CUDA tensors")
 
@@ -400,5 +403,107 @@ def test_cuda_attention_never_reaches_a_plain_version(cuda_device, model, monkey
     launches = {k: v.launches for k, v in kops.KERNELS.items()}
     assert launches["stacked_attn_epilogue"] == 1 and launches["stacked_attn_dh"] == 1
     assert launches["stacked_mean_linear"] == 1 and launches["stacked_mean_linear_dh"] == 1
-    with pytest.raises(NotImplementedError, match="kernel 3"):
-        stacked_agg(mod, ts, slot_u, th, tq, tm, opts=KernelConfig(fuse_epilogue=False))
+    kops.reset_launch_counts()
+    out = stacked_agg(mod, ts, slot_u, th, tq, tm, opts=KernelConfig(fuse_epilogue=False))
+    torch.autograd.grad(out.sum(), [*ts.values(), th, tq])
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kops.KERNELS.items()}
+    assert launches["stacked_softmax_combine"] == 1
+    assert launches["stacked_attn_epilogue"] == 0 and launches["stacked_attn_dh"] == 0
+
+
+# --------------------------------------------------------------------------
+# kernel 6 (relation_agg) and kernel 3 (stacked_softmax_combine)
+# --------------------------------------------------------------------------
+
+# (n, f, d_in, d_out): tests/test_kernels.py's AGG_SHAPES, one row, and the
+# dict-form raf executor's R-GCN shapes at batch 1024
+AGG_SHAPES = [(200, 25, 128, 64), (64, 20, 64, 64), (64, 4, 789, 64), (128, 20, 64, 349),
+              (5, 3, 7, 16), (256, 10, 1024, 64), (1, 1, 1, 1), (1024, 4, 64, 64),
+              (4096, 3, 128, 64), (4096, 3, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,di,do", AGG_SHAPES)
+def test_cuda_relation_agg_matches_plain(cuda_device, n, f, di, do):
+    r = np.random.default_rng(n + di)
+    h = torch.from_numpy(r.standard_normal((n, f, di)).astype(np.float32)).to(cuda_device)
+    m = r.random((n, f)) > 0.3
+    m[0] = False  # an all-masked row gives b
+    mask = torch.from_numpy(m).to(cuda_device)
+    w = torch.from_numpy((r.standard_normal((di, do)) * 0.1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy((r.standard_normal(do) * 0.1).astype(np.float32)).to(cuda_device)
+    kops.reset_launch_counts()
+    got = ra_ops.relation_agg(h, mask, w, b)
+    torch.cuda.synchronize()
+    assert ra_ops.INFO.launches == 1 and ra_ops.INFO.shapes[(n, f, di, do)] == 1
+    want = ra_ops.relation_agg_ref(h, mask, w, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(got[0].cpu().numpy(), b.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_relation_agg_refuses_what_it_does_not_take(cuda_device):
+    h = torch.zeros((4, 3, 8), device=cuda_device)
+    mask = torch.ones((4, 3), dtype=torch.bool, device=cuda_device)
+    w, b = torch.zeros((8, 5), device=cuda_device), torch.zeros(5, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        ra_ops.relation_agg(h.double(), mask, w.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ra_ops.relation_agg(torch.zeros((4, 8, 3), device=cuda_device).transpose(1, 2), mask,
+                            w, b)
+    with pytest.raises(ValueError):
+        ra_ops.relation_agg(h, mask, w.cpu(), b)
+    with pytest.raises(ValueError, match="shapes"):
+        ra_ops.relation_agg(h, mask, w.t().contiguous(), b)
+
+
+# (rb, n, f, nh, dh): tests/test_stacked_kernels.py's cases, the fanouts the
+# paths take (f = 16 on the serving path) and beyond, ragged n, H > 256
+SC_SHAPES = [(3, 21, 4, 2, 5), (1, 1, 1, 1, 1), (5, 130, 3, 4, 16), (2, 7, 16, 4, 16),
+             (3, 45, 64, 4, 16), (2, 9, 100, 4, 16), (3, 50, 5, 3, 24), (2, 33, 3, 8, 40),
+             (6, 4096, 3, 4, 16), (3, 1024, 4, 4, 16), (2, 1024, 16, 4, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb,n,f,nh,dh", SC_SHAPES)
+def test_cuda_softmax_combine_matches_plain(cuda_device, rb, n, f, nh, dh):
+    r = np.random.default_rng(rb * n + f)
+    e = torch.from_numpy(r.standard_normal((rb, n, f, nh)).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(r.standard_normal((rb, n, f, nh, dh)).astype(np.float32)).to(cuda_device)
+    m = r.random((rb, n, f)) > 0.3
+    m[0, 0] = False  # a fully masked row gives zeros
+    mask = torch.from_numpy(m).to(cuda_device)
+    kops.reset_launch_counts()
+    got = stacked_softmax_combine(e, mask, v)
+    torch.cuda.synchronize()
+    assert kops.KERNELS["stacked_softmax_combine"].launches == 1
+    want = stacked_softmax_combine_ref(e, mask, v)
+    assert torch.isfinite(got).all() and not got[0, 0].any()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_raf_executor_never_reaches_a_plain_version(cuda_device, monkeypatch):
+    """The raf executor's R-GCN step on the card, its forward and backward,
+    with relation_agg's plain version made to raise: every branch of the
+    metatree launches kernel 6 once a step, and the losses follow the same
+    session on the CPU within 1e-5."""
+    from repro_torch.api import Heta, HetaConfig
+
+    cfg = HetaConfig().updated(data=dict(scale=0.002, fanouts=(3, 2), batch_size=16),
+                               partition=dict(num_partitions=2), cache=dict(cache_mb=1),
+                               run=dict(steps=3, executor="raf"))
+    cpu = Heta(cfg, device="cpu").run()["losses"]
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ra_ops, "relation_agg_ref", refuse)
+    sess = Heta(cfg, device=cuda_device)
+    sess.build_graph(), sess.partition(), sess.profile_and_cache(), sess.compile()
+    kops.reset_launch_counts()
+    got = sess.fit()["losses"]
+    branches = sum(len(lv) for lv in sess.spec.levels)
+    assert ra_ops.INFO.launches == 3 * branches
+    np.testing.assert_allclose(got, cpu, atol=1e-5, rtol=0)

@@ -401,10 +401,15 @@ def test_train_cli_runs_on_the_cpu_and_refuses_without_a_gpu(monkeypatch, capsys
 
 
 def test_later_slices_raise_named_errors():
+    """Every executor the reference registers compiles (an unknown name
+    raises the named KeyError listing them); the host pipeline and the
+    data-parallel tier, later slices, raise named NotImplementedErrors."""
     sess = _port_session()
     sess.build_graph(), sess.partition(), sess.profile_and_cache()
-    with pytest.raises(KeyError, match="available: \\('raf_spmd'"):
-        sess.compile(executor="vanilla")
+    with pytest.raises(KeyError, match="available: \\('raf', 'raf_spmd', 'serve', 'vanilla'\\)"):
+        sess.compile(executor="bogus")
+    sess.compile(executor="vanilla")
+    assert sess.executor.name == "vanilla" and "bundle" in sess.state
     sess.compile()
     for section, kw, name in (("pipeline", dict(enabled=True), "pipeline.enabled"),
                               ("scale", dict(num_trainers=2), "scale.enabled")):

@@ -3,10 +3,11 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                 # ogbn-mag at scale 0.1
+    python3 chip_smoke.py                 # ogbn-mag at scale 0.1, llama3.2-3b
     python3 chip_smoke.py --scale 1.0 --out results/smoke.json
 
-Phases (any failure ends the run with a non-zero exit and no result line):
+Phases, run in the order 1-6, 9, 7, 8 (any failure ends the run with a
+non-zero exit and no result line):
 
   1. environment — torch/CUDA versions, the card's name and power limit;
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
@@ -71,12 +72,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      paths launched; at f = 1 the library call of stacked_mean_linear
      (torch.baddbmm) and of its dh (torch.bmm), the slot gather outside the
      timed call; plus the whole backward of the R-GCN autograd Function (dh
-     + dw + db) at the leaf shape;
+     + dw + db) at the leaf shape; flash_attention at the LM prefill's shape
+     (bound by bf16 operations at 989 TFLOP/s, library call
+     scaled_dot_product_attention) and at one sq = 1 decode shape;
   8. card vs CPU — the same training session at a small scale on the GPU
      (kernels) and on the CPU (plain PyTorch), for R-GCN, R-GAT and HGT, the
      raf executor's R-GCN and the unfused R-GAT: 3-step losses within 1e-5,
      then (raf_spmd) every type's infer_all embeddings within atol/rtol
-     1e-5.
+     1e-5; reduced llama3.2-3b (fp32): prefill logits and 8 decode steps
+     within 1e-4;
+  9. LM workbench — llama3.2-3b at full width (28 layers, d_model 3072, 24
+     heads over 8 kv heads of 128, bf16) with weights drawn on the card from
+     ``--seed``: from reset launch counts, make_prefill_step on a 4 x 2048
+     prompt drawn with numpy (flash_attention launched exactly once per
+     layer), then 32 greedy decode steps against the cache padded to 2080;
+     prefill ms, decode ms/token and tokens/s.  Then the bf16 prefill
+     logits with the kernel and with the einsum path, each against the fp32
+     answer for the same weights: the kernel's within relative Frobenius
+     error 2e-2 of it and no farther from it than the einsum path's (the
+     two bf16 paths' own gap is printed: at 28 random layers it sits at
+     bf16's noise floor, 0.02); at full width, 2 layers, fp32: prefill
+     logits with the kernel
+     within 1e-4 of the einsum path, prefill(2048) then decode(token 2048)
+     within 1e-3 of forward(2049), and a 32-slot sliding-window ring buffer
+     fed 48 tokens through decode within 1e-3 of the windowed forward.
+
+Phase 3 also holds flash_attention against attention_ref at the reference's
+ATTN_CASES, rows with no visible key, ragged non-causal, sq = 1 with
+q_offset and s = 2048 with d = 128 and GQA 24:8, in fp32 (atol/rtol 2e-5)
+and bf16 (3e-2).
 
 The last three lines are the card's name and power limit, one JSON object
 describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -99,6 +123,7 @@ SRC = REPO / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 L2_BYTES = 50 << 20
 TOL = dict(atol=1e-5, rtol=1e-5)
 DEVICE = "cuda"  # where phases 3 and 7 put the kernels' inputs
@@ -669,6 +694,323 @@ def time_softmax_combine(shape, device):
 
 
 # --------------------------------------------------------------------------
+# kernel 8 (flash_attention): inputs, plain version, timing
+# --------------------------------------------------------------------------
+
+# a recorded flash_attention shape: (b, h, hk, sq, sk, d, causal, window (-1:
+# none), q_offset, dtype code (0 fp32, 1 bf16))
+FLASH_TOL = {0: dict(atol=2e-5, rtol=2e-5), 1: dict(atol=3e-2, rtol=3e-2)}
+
+
+def flash_args(shape):
+    b, h, hk, sq, sk, d, causal, window, off, code = shape
+    return dict(causal=bool(causal), window=None if window < 0 else window, q_offset=off)
+
+
+def flash_inputs(shape, seed, device):
+    """q, k, v of a recorded shape in the model's [b, s, h, d] layout."""
+    import numpy as np
+    import torch
+
+    b, h, hk, sq, sk, d, _, _, _, code = shape
+    dtype = (torch.float32, torch.bfloat16)[code]
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return tuple(torch.randn(shp, generator=g, device=device).to(dtype)
+                 for shp in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d)))
+
+
+def check_flash(shape, seed, device) -> float:
+    """Kernel 8 through its wrapper (on transposed views, as the model calls
+    it) against attention_ref on the same inputs; bf16 also against fp32
+    attention of the same inputs.  Returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    kw = flash_args(shape)
+    q, k, v = (t.transpose(1, 2) for t in flash_inputs(shape, seed, device))
+    got = flash_attention(q, k, v, **kw)
+    ref = attention_ref(q, k, v, kw["causal"], kw["window"], kw["q_offset"])
+    refs = [ref]
+    if shape[-1] == 1:
+        refs.append(attention_ref(q.float(), k.float(), v.float(), kw["causal"], kw["window"],
+                                  kw["q_offset"]))
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[shape[-1]]
+    check(bool(torch.isfinite(got).all()), f"flash_attention {shape}: non-finite output")
+    worst = 0.0
+    for want in refs:
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= tol["atol"] + tol["rtol"] * want.float().abs()).all()),
+              f"flash_attention {shape}: max abs err {float(err.max()):.3g} over tolerance")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    return worst
+
+
+def flash_pairs(sq, sk, causal, window, off) -> int:
+    """(query, key) pairs inside the mask: the work this input needs."""
+    import numpy as np
+
+    qp = np.arange(sq, dtype=np.int64) + off
+    hi = np.minimum(qp, sk - 1) if causal else np.full(sq, sk - 1, np.int64)
+    lo = np.maximum(qp - window + 1, 0) if window >= 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def time_flash(shape, device):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    b, h, hk, sq, sk, d, causal, window, off, code = shape
+    kw = flash_args(shape)
+    esize = 4 if code == 0 else 2
+    in_bytes = (b * sq * h * d + 2 * b * sk * hk * d) * esize
+    sets = [flash_inputs(shape, 800 + i, device) for i in range(copies_to_exceed_l2(in_bytes))]
+    raw = [(q, k, v, torch.empty_like(q), kw["causal"], kw["window"], kw["q_offset"])
+           for q, k, v in sets]
+    ms = time_ms(fa.launch_kernel, raw, iters=20)
+    views = [tuple(t.transpose(1, 2) for t in qkv) for qkv in sets]
+    plain_ms = time_ms(attention_ref, [(*qkv, kw["causal"], kw["window"], kw["q_offset"])
+                                       for qkv in views], iters=10)
+    # the library yardstick where one call computes the same function: no
+    # window, and either every key visible or causal from position 0
+    library_ms = None
+    if window < 0 and (not causal or off >= sk - 1 or off == 0):
+        is_causal = bool(causal) and off < sk - 1
+        library_ms = time_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=is_causal,
+                                                           enable_gqa=True),
+            views, iters=20)
+    pairs = flash_pairs(sq, sk, causal, window, off)
+    nbytes = in_bytes + b * sq * h * d * esize
+    flops = 4 * d * pairs * b * h  # q k^T and p v over the visible pairs
+    peak = FP32_FLOP_PER_S if code == 0 else BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bytes=nbytes, flops=flops)
+
+
+# phase 3's cases of kernel 8: the reference's ATTN_CASES, the rows with no
+# visible key (ROADMAP.md §3 R3), ragged non-causal, sq = 1 with q_offset,
+# and llama3.2-3b's heads (24:8, d = 128) at s = 2048; each in fp32 and bf16
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 64, 1, -1, 0), (1, 8, 8, 300, 300, 64, 1, -1, 0),
+    (1, 4, 4, 256, 256, 128, 1, 64, 0), (2, 4, 2, 1, 512, 64, 1, -1, 511),
+    (1, 2, 2, 1, 1024, 64, 1, 256, 1023), (1, 2, 2, 128, 128, 64, 0, -1, 0),
+    (1, 16, 16, 160, 160, 80, 0, -1, 0), (1, 2, 2, 16, 16, 32, 0, 4, 10),
+    (2, 6, 3, 77, 131, 64, 0, -1, 0), (1, 6, 2, 100, 37, 32, 0, 9, 0),
+    (4, 24, 8, 1, 2049, 128, 1, -1, 2048), (1, 24, 8, 2048, 2048, 128, 1, -1, 0),
+]
+# phase 7's decode shape (not on the path: decode attention is plain torch
+# ops): one token of llama3.2-3b's batch 4 against a 2048-token cache
+FLASH_DECODE_SHAPE = (4, 24, 8, 1, 2049, 128, 1, -1, 2048, 1)
+
+
+# --------------------------------------------------------------------------
+# the LM workbench (phases 9 and 8)
+# --------------------------------------------------------------------------
+
+
+def rel_frobenius(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def run_lm(report: dict, seed: int, batch: int = 4, prompt: int = 2048, new_tokens: int = 32):
+    """Phase 9: llama3.2-3b at full width (28 layers, d_model 3072, bf16,
+    weights from ``seed``) through prefill and greedy decode on the card,
+    from reset launch counts; then the checks at full width.  Returns the
+    shapes each kernel was launched at by prefill + decode."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import (forward, init_decode_cache, init_params,
+                                    make_prefill_step, make_serve_step)
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("llama3.2-3b")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.dtype)
+          == (28, 3072, 24, 8, 128, "bfloat16"), f"unexpected llama3.2-3b config {cfg}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for blk in params["blocks"].values() for t in blk.values())
+    n_params += sum(params[k].numel() for k in ("final_norm", "embed", "head"))
+    check(n_params == cfg.param_count(), f"{n_params} parameters, config says "
+          f"{cfg.param_count()}")
+    log(f"  llama3.2-3b: {n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB bf16) "
+        f"initialized on the card from seed {seed} in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt + 1)), device=DEVICE)
+    prompts = tokens[:, :prompt]
+    prefill = make_prefill_step(cfg)
+    serve = make_serve_step(cfg)
+
+    prefill(params, {"tokens": prompts})  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches, _ = launch_counts()
+    cache = {k: F.pad(c, (0, 0, 0, 0, 0, new_tokens)) for k, c in cache.items()}
+    token = logits[:, -1:].argmax(dim=-1)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(prompt, prompt + new_tokens):
+        step_logits, cache = serve(params, cache, token, pos)
+        token = step_logits.argmax(dim=-1)
+        out.append(token)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches, shapes = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(prefill_launches["flash_attention"] == cfg.num_layers,
+          f"prefill launched flash_attention {prefill_launches['flash_attention']} times, "
+          f"want {cfg.num_layers}")
+    check(launches["flash_attention"] == cfg.num_layers,
+          "decode launched flash_attention (its attention is plain torch ops)")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"the LM path launched other kernels: {launches}")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_logits).all()),
+          "non-finite logits")
+    check(tuple(cache["k"].shape) == (cfg.n_periods, 1, batch, prompt + new_tokens,
+                                      cfg.num_kv_heads, cfg.hd),
+          f"cache shape {tuple(cache['k'].shape)}")
+    gen = torch.cat(out, dim=1).cpu().numpy()
+    tok_s = batch * new_tokens / decode_s
+    log(f"  prefill {batch}x{prompt}: {prefill_s * 1e3:.2f} ms "
+        f"({batch * prompt / prefill_s:,.0f} prompt tokens/s), flash_attention launched "
+        f"{prefill_launches['flash_attention']} times at {dict(shapes['flash_attention'])}")
+    log(f"  decode {new_tokens} steps x batch {batch} (cache {prompt + new_tokens}): "
+        f"{decode_s * 1e3:.2f} ms, {decode_s / new_tokens * 1e3:.3f} ms/token, "
+        f"{tok_s:,.1f} tokens/s; peak device memory {peak_gb:.2f} GB; "
+        f"generated tokens of row 0: {gen[0][:8].tolist()}...")
+    res = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s / new_tokens * 1e3,
+               decode_tokens_per_s=tok_s, peak_gb=peak_gb, launches=launches,
+               shapes=shape_dict(shapes), batch=batch, prompt=prompt, new_tokens=new_tokens)
+
+    # bf16 at full depth: the kernel and the einsum path, each against the
+    # exact answer for the same weights (upcast to fp32, einsum path in fp32)
+    plain_logits, _ = make_prefill_step(cfg, use_kernel=False)(params, {"tokens": prompts})
+    del cache
+    cfg32 = dataclasses.replace(cfg, name="llama3.2-3b-fp32", dtype="float32")
+    params = {k: ({kind: {leaf: t.float() for leaf, t in blk.items()}
+                   for kind, blk in v.items()} if k == "blocks" else v.float())
+              for k, v in params.items()}
+    exact, _ = make_prefill_step(cfg32, use_kernel=False)(params, {"tokens": prompts})
+    res["bf16_rel_frobenius"] = rel_frobenius(logits, plain_logits)
+    res["bf16_kernel_vs_exact"] = rel_frobenius(logits, exact)
+    res["bf16_einsum_vs_exact"] = rel_frobenius(plain_logits, exact)
+    log(f"  bf16, {cfg.num_layers} layers, prefill logits, relative Frobenius error: kernel "
+        f"path vs einsum path {res['bf16_rel_frobenius']:.4g}; against the fp32 answer for "
+        f"the same weights: kernel path {res['bf16_kernel_vs_exact']:.4g}, einsum path "
+        f"{res['bf16_einsum_vs_exact']:.4g} (gate: the kernel path within 2e-2 of the fp32 "
+        f"answer and no farther from it than the einsum path)")
+    check(res["bf16_kernel_vs_exact"] <= 2e-2, "bf16 prefill logits with kernel 8 are more "
+          "than 2e-2 from the fp32 answer")
+    check(res["bf16_kernel_vs_exact"] <= res["bf16_einsum_vs_exact"],
+          "bf16 prefill logits with kernel 8 are farther from the fp32 answer than the "
+          "einsum path's")
+    del logits, plain_logits, exact
+    torch.cuda.empty_cache()
+
+    # fp32 at full width, 2 layers: the first two layers of the same weights
+    cfg32 = dataclasses.replace(cfg32, name="llama3.2-3b-2l-fp32", num_layers=2)
+    params["blocks"] = {kind: {leaf: t[:2] for leaf, t in blk.items()}
+                        for kind, blk in params["blocks"].items()}
+    lk, cache = make_prefill_step(cfg32)(params, {"tokens": prompts})
+    le, _ = make_prefill_step(cfg32, use_kernel=False)(params, {"tokens": prompts})
+    res["fp32_kernel_vs_einsum"] = max_abs(lk, le)
+    log(f"  fp32, 2 layers: prefill logits with kernel 8 vs the einsum path, max abs "
+        f"{res['fp32_kernel_vs_einsum']:.3g} (limit 1e-4)")
+    check(res["fp32_kernel_vs_einsum"] <= 1e-4, "fp32 prefill logits: kernel and einsum "
+          "path disagree")
+    cache = {k: F.pad(c, (0, 0, 0, 0, 0, 1)) for k, c in cache.items()}
+    ld, _ = make_serve_step(cfg32)(params, cache, tokens[:, prompt:prompt + 1], prompt)
+    full = forward(cfg32, params, {"tokens": tokens})
+    res["fp32_decode_vs_forward"] = max_abs(ld[:, 0], full[:, prompt])
+    res["fp32_prefill_vs_forward"] = max_abs(lk[:, 0], full[:, prompt - 1])
+    log(f"  fp32, 2 layers: prefill({prompt}) then decode(token {prompt}) vs "
+        f"forward({prompt + 1}), max abs {res['fp32_decode_vs_forward']:.3g}; prefill vs "
+        f"forward {res['fp32_prefill_vs_forward']:.3g} (limit 1e-3)")
+    check(res["fp32_decode_vs_forward"] <= 1e-3 and res["fp32_prefill_vs_forward"] <= 1e-3,
+          "fp32 decode disagrees with the forward")
+    del full
+    window, steps = 32, 48
+    ring = init_decode_cache(cfg32, batch, window, device=DEVICE)
+    step_w = make_serve_step(cfg32, window=window)
+    for pos in range(steps):
+        lw, ring = step_w(params, ring, tokens[:, pos:pos + 1], pos)
+    fw = forward(cfg32, params, {"tokens": tokens[:, :steps]}, window=window)
+    res["fp32_window_decode_vs_forward"] = max_abs(lw[:, 0], fw[:, -1])
+    log(f"  fp32, 2 layers: window {window} ring buffer fed {steps} tokens through decode "
+        f"vs the windowed forward (kernel 8 with a window), max abs "
+        f"{res['fp32_window_decode_vs_forward']:.3g} (limit 1e-3)")
+    check(res["fp32_window_decode_vs_forward"] <= 1e-3, "windowed decode disagrees with the "
+          "windowed forward")
+    del params, ring, fw, lk, le
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t_phase:.1f} s phase)")
+    report["lm"] = res
+    return shapes
+
+
+def run_lm_reference(seed: int, steps: int = 8) -> dict:
+    """Phase 8 for the LM: reduced llama3.2-3b (fp32) on the card and on the
+    CPU from the same weights: prefill logits and ``steps`` decode steps."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import init_params, make_prefill_step, make_serve_step
+
+    cfg = get_arch("llama3.2-3b").reduced()
+    cpu = init_params(cfg, seed, "cpu")
+    gpu = {k: ({kk: {leaf: t.to(DEVICE) for leaf, t in vv.items()} for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(DEVICE)) for k, v in cpu.items()}
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 64 + steps))
+    out = {}
+    for name, params in (("gpu", gpu), ("cpu", cpu)):
+        reset_launch_counts()
+        logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens[:, :64]})
+        out[f"{name}_launches"] = launch_counts()[0]["flash_attention"]
+        cache = {k: F.pad(c, (0, 0, 0, 0, 0, steps)) for k, c in cache.items()}
+        seq, step = [logits], make_serve_step(cfg)
+        for pos in range(64, 64 + steps):
+            logits, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
+            seq.append(logits)
+        out[name] = torch.cat(seq, dim=1).cpu()
+    diff = max_abs(out["gpu"], out["cpu"])
+    log(f"  [llama3.2-3b reduced, fp32] prefill 4x64 + {steps} decode steps, card vs CPU: "
+        f"max abs diff {diff:.3g} (limit 1e-4); card launches of flash_attention "
+        f"{out['gpu_launches']}")
+    check(out["gpu_launches"] == cfg.num_layers, "the card's prefill did not launch "
+          "flash_attention once per layer")
+    check(diff <= 1e-4, f"llama3.2-3b reduced: card and CPU differ by {diff:.3g}")
+    return dict(max_diff=diff, launches=out["gpu_launches"])
+
+
+# --------------------------------------------------------------------------
 # the slice
 # --------------------------------------------------------------------------
 
@@ -1178,7 +1520,8 @@ TIMERS = {"stacked_mean_linear": (time_mean_linear, check_mean_linear),
           "stacked_attn_epilogue": (time_attn, check_attn),
           "stacked_attn_dh": (time_attn_dh, check_attn_dh),
           "relation_agg": (time_relation_agg, check_relation_agg),
-          "stacked_softmax_combine": (time_softmax_combine, check_softmax_combine)}
+          "stacked_softmax_combine": (time_softmax_combine, check_softmax_combine),
+          "flash_attention": (time_flash, check_flash)}
 # kernels timed at every shape a path launched them with (not only its two
 # most launched)
 TIME_ALL = ("relation_agg", "stacked_softmax_combine")
@@ -1218,7 +1561,7 @@ def kernel_table(paths: dict, errs: dict, device):
                     f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}"
                     f" ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']}), "
                     f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s, "
-                    f"{t['flops'] / t['ms'] / 1e9:.1f} GFLOP/s")
+                    f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
         main = next(timed[p]["timed"][0] for p in paths if timed[p]["timed"])
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         entries.append({
@@ -1266,6 +1609,8 @@ def main(argv=None) -> int:
                     help="ogbn-mag scale of the slice (default 0.1; 1.0 = full size)")
     ap.add_argument("--ref-scale", type=float, default=0.005,
                     help="scale of the GPU-vs-CPU reference check (default 0.005)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LM workbench's weights and prompts (default 0)")
     ap.add_argument("--out", default=None, help="also write the detailed results as JSON here")
     args = ap.parse_args(argv)
 
@@ -1341,7 +1686,14 @@ def main(argv=None) -> int:
     for i, shape in enumerate(SC_SHAPES):
         errs["stacked_softmax_combine"] = max(errs["stacked_softmax_combine"],
                                               check_softmax_combine(shape, i, DEVICE))
-    log(f"  ok; max abs err {errs}")
+    # kernel 8 at the reference's ATTN_CASES and the LM's shapes, fp32 and bf16
+    flash_errs = [0.0, 0.0]
+    for i, case in enumerate(FLASH_CASES):
+        for code in (0, 1):
+            flash_errs[code] = max(flash_errs[code], check_flash(case + (code,), i, DEVICE))
+    errs["flash_attention"] = max(flash_errs)
+    log(f"  ok; max abs err {errs}; flash_attention fp32 {flash_errs[0]:.3g}, bf16 "
+        f"{flash_errs[1]:.3g}")
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
@@ -1372,9 +1724,13 @@ def main(argv=None) -> int:
         log(f"== 4d {model} training with the epilogue unfused (kernel 3), then infer_all")
         paths[f"{model} unfused training"], paths[f"{model} unfused serving"] = run_unfused(
             args.scale, report, g, model, report["training"][model]["losses"])
+    log(f"== 9 LM workbench: llama3.2-3b at full width (bf16, seed {args.seed}), prefill "
+        "4 x 2048 then 32 greedy decode steps")
+    paths["lm prefill + decode"] = run_lm(report, args.seed)
     order = [f"{m} {p}" for p in ("training", "serving") for m in ("rgcn", "rgat", "hgt")]
     order += ["rgcn raf training"] + [f"{m} unfused {p}" for p in ("training", "serving")
                                       for m in ("rgat", "hgt")]
+    order += ["lm prefill + decode"]
     paths = {p: paths[p] for p in order}
 
     log("== 7 kernels at the shapes the training and serving paths launched them with")
@@ -1385,14 +1741,22 @@ def main(argv=None) -> int:
     log(f"  autograd backward of stacked_mean_linear (dh + dw + db) at {leaf}: "
         f"{back_ms:.4f} ms")
     report["backward_ms"] = dict(shape=list(leaf), ms=back_ms)
+    err = check_flash(FLASH_DECODE_SHAPE, 77, DEVICE)
+    t = time_flash(FLASH_DECODE_SHAPE, DEVICE)
+    log(f"  flash_attention at the decode shape {FLASH_DECODE_SHAPE} (not on the path: "
+        f"decode attention is plain torch ops): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.3g} ms ({t['bound_by']}), max abs err {err:.3g}")
+    report["flash_decode_shape"] = dict(shape=list(FLASH_DECODE_SHAPE), max_abs_err=err, **t)
 
-    log(f"== 8 card vs CPU (scale {args.ref_scale}, batch 32)")
+    log(f"== 8 card vs CPU (scale {args.ref_scale}, batch 32; reduced llama3.2-3b)")
     report["reference"] = {}
     for model, executor, fuse in (("rgcn", "raf_spmd", True), ("rgat", "raf_spmd", True),
                                   ("hgt", "raf_spmd", True), ("rgcn", "raf", True),
                                   ("rgat", "raf_spmd", False)):
         report["reference"][f"{model} {executor}{'' if fuse else ' unfused'}"] = run_reference(
             args.ref_scale, model, executor=executor, fuse_epilogue=fuse)
+    report["reference"]["llama3.2-3b reduced"] = run_lm_reference(args.seed)
     report["wall_s"] = time.perf_counter() - t_start
     log(f"  whole run {report['wall_s']:.1f} s")
 

@@ -11,19 +11,21 @@ needs neither JAX nor the reference package:
     port_sess.compile(state={"stacks": stacks_from_reference(stacks_np, "cpu")})
 
 The dict-form executors (``vanilla``, ``raf``) take a parameter bundle
-instead (:func:`bundle_from_reference`).
+instead (:func:`bundle_from_reference`), and the LM workbench a parameter
+tree (:func:`lm_params_from_reference`).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["stacks_from_reference", "bundle_from_reference", "tables_from_reference"]
+__all__ = ["stacks_from_reference", "bundle_from_reference", "tables_from_reference",
+           "lm_params_from_reference"]
 
 
 def stacks_from_reference(stacks_np: Dict, device=None) -> Dict:
@@ -68,3 +70,30 @@ def tables_from_reference(tables_np: Dict[str, np.ndarray]) -> Dict[str, np.ndar
     (contiguous float32 numpy, one per node type)."""
     return {t: np.ascontiguousarray(np.asarray(a, np.float32))
             for t, a in tables_np.items()}
+
+
+def _lm_leaf(a, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through float32
+        t = torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.tensor(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lm_params_from_reference(params_np: Dict, device=None,
+                             dtype: Optional[torch.dtype] = None) -> Dict:
+    """The reference's LM ``init_params`` tree of numpy leaves (``{"blocks":
+    {kind: {leaf: [n_periods, n_slots, ...]}}, "final_norm", "embed",
+    "head"}``) -> the port's tree of tensors on ``device`` (``None``: the
+    GPU), in each leaf's own type (bfloat16 kept) or in ``dtype``."""
+    if "blocks" not in params_np or "head" not in params_np:
+        raise ValueError(f"expected an LM parameter tree, got keys {sorted(params_np)}")
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _lm_leaf(tree, device, dtype)
+
+    return conv(params_np)

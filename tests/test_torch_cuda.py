@@ -9,7 +9,10 @@ it runs on the GPU host as it is:
 Tolerance: fp32, atol 1e-5 / rtol 1e-5 for the aggregations and their
 backwards (the kernels sum the fanout and the contraction in their own
 order; the attention epilogue also applies HGT's per-head transforms once
-per row instead of once per neighbour); the gather is exact.
+per row instead of once per neighbour); the gather is exact.  Flash
+attention (kernel 8): the reference's tolerances, fp32 2e-5 and bf16 3e-2
+(the kernel keeps fp32 logits, the plain version rounds them to bf16); the
+reduced LM on the card within 1e-4 of the CPU.
 TF32 is switched off so the plain version's matmul runs in full fp32.
 """
 
@@ -507,3 +510,112 @@ def test_cuda_raf_executor_never_reaches_a_plain_version(cuda_device, monkeypatc
     branches = sum(len(lv) for lv in sess.spec.levels)
     assert ra_ops.INFO.launches == 3 * branches
     np.testing.assert_allclose(got, cpu, atol=1e-5, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# kernel 8: flash attention, and the LM workbench on the card
+# --------------------------------------------------------------------------
+
+# (b, h, hk, sq, sk, d, causal, window, q_offset): the reference's ATTN_CASES,
+# the R3 case (rows with no visible key), ragged non-causal, sq = 1 decode
+# shapes, and llama3.2-3b's heads (24:8, d = 128) at s = 2048
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, 0),
+    (1, 8, 8, 300, 300, 64, True, None, 0),
+    (1, 4, 4, 256, 256, 128, True, 64, 0),
+    (2, 4, 2, 1, 512, 64, True, None, 511),
+    (1, 2, 2, 1, 1024, 64, True, 256, 1023),
+    (1, 2, 2, 128, 128, 64, False, None, 0),
+    (1, 16, 16, 160, 160, 80, False, None, 0),
+    (1, 2, 2, 16, 16, 32, False, 4, 10),
+    (2, 6, 3, 77, 131, 64, False, None, 0),
+    (1, 6, 2, 100, 37, 32, False, 9, 0),
+    (4, 24, 8, 1, 2049, 128, True, None, 2048),
+    (1, 24, 8, 2048, 2048, 128, True, None, 0),
+]
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+def _flash_inputs(case, dtype, device, seed):
+    b, h, hk, sq, sk, d = case[:6]
+    r = np.random.default_rng(seed)
+
+    def draw(*shape):  # the model's [b, s, h, d] layout, handed over as views
+        t = torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+        return t.to(device=device, dtype=dtype).transpose(1, 2)
+
+    return draw(b, sq, h, d), draw(b, sk, hk, d), draw(b, sk, hk, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    causal, window, off = case[6:]
+    q, k, v = _flash_inputs(case, dtype, cuda_device, sum(case[:6]))
+    kops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert kops.KERNELS["flash_attention"].launches == 1
+    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+    want = attention_ref(q, k, v, causal, window, off)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:  # also against fp32 attention of the same inputs
+        want32 = attention_ref(q.float(), k.float(), v.float(), causal, window, off)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want32.cpu().numpy(),
+                                   **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.zeros(1, 2, 8, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q, torch.zeros(1, 2, 64, 8, device=cuda_device).transpose(2, 3))
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(*(torch.zeros(1, 2, 8, 48, device=cuda_device),) * 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(*(q.half(),) * 3)
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        flash_attention(q, q.bfloat16(), q)
+    odd = torch.zeros(1, 2, 8, 65, device=cuda_device, dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(odd, odd, odd)
+    odd32 = torch.ones(1, 2, 8, 65, device=cuda_device)[..., 1:]  # fp32 takes any stride
+    torch.testing.assert_close(flash_attention(odd32, odd32, odd32), odd32)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_prefill_launches_the_kernel_and_matches_the_cpu(cuda_device):
+    """Reduced llama3.2-3b (fp32): prefill on the card launches kernel 8
+    once per layer; logits and 8 decode steps follow the CPU within 1e-4."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, make_prefill_step, make_serve_step
+
+    cfg = get_arch("llama3.2-3b").reduced()
+    cpu = init_params(cfg, 0, "cpu")
+    gpu = {k: (v.to(cuda_device) if torch.is_tensor(v) else
+               {kk: {leaf: t.to(cuda_device) for leaf, t in vv.items()} for kk, vv in v.items()})
+           for k, v in cpu.items()}
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))
+    out = {}
+    for name, params in (("cpu", cpu), ("gpu", gpu)):
+        kops.reset_launch_counts()
+        logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens[:, :32]})
+        out[name + "_launches"] = kops.KERNELS["flash_attention"].launches
+        cache = {k: F.pad(c, (0, 0, 0, 0, 0, 8)) for k, c in cache.items()}
+        steps = [logits]
+        step = make_serve_step(cfg)
+        for pos in range(32, 40):
+            logits, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
+            steps.append(logits)
+        out[name] = torch.cat(steps, 1).cpu()
+    assert out["gpu_launches"] == cfg.num_layers and out["cpu_launches"] == 0
+    np.testing.assert_allclose(out["gpu"].numpy(), out["cpu"].numpy(), atol=1e-4, rtol=1e-4)

@@ -221,14 +221,16 @@ def test_kernel_sources_declare_c_entry_points():
 
     assert set(build.SOURCES) == {"stacked_mean_linear", "stacked_mean_linear_dh",
                                   "gather_rows", "stacked_attn_epilogue", "stacked_attn_dh",
-                                  "relation_agg", "stacked_softmax_combine"}
+                                  "relation_agg", "stacked_softmax_combine",
+                                  "flash_attention"}
     for name, entry in (("stacked_mean_linear", "stacked_mean_linear_fwd"),
                         ("stacked_mean_linear_dh", "stacked_mean_linear_dh"),
                         ("gather_rows", "gather_rows_f32"),
                         ("stacked_attn_epilogue", "stacked_attn_epilogue"),
                         ("stacked_attn_dh", "stacked_attn_dh"),
                         ("relation_agg", "relation_agg_fwd"),
-                        ("stacked_softmax_combine", "stacked_softmax_combine_fwd")):
+                        ("stacked_softmax_combine", "stacked_softmax_combine_fwd"),
+                        ("flash_attention", "flash_attention_fwd")):
         text = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {entry}(' in text
         assert "return (int)cudaGetLastError();" in text

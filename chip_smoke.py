@@ -11,7 +11,10 @@ non-zero exit and no result line):
 
   1. environment — torch/CUDA versions, the card's name and power limit;
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
-     process per source, all at once;
+     process per source, all at once; the ptxas registers and spills of the
+     kernels redesigned for Hopper (flash_attention's wgmma kernel and
+     stacked_mean_linear_dh's), and ``cuobjdump -sass`` of the flash attention
+     library, which must hold HGMMA and UTMALDG instructions;
   3. kernels vs plain — each kernel's wrapper on the card at ragged shapes
      and the training path's shapes against its plain PyTorch version
      (atol/rtol 1e-5: the kernels sum in their own order; gather_rows
@@ -24,6 +27,9 @@ non-zero exit and no result line):
      at the reference's AGG_SHAPES, the raf path's shapes and an all-masked
      case; stacked_softmax_combine (the unfused attention epilogue) at the
      reference's cases, f in {16, 64, 100}, ragged n and H beyond 256;
+     stacked_mean_linear_dh also at 108 ragged shapes (n in {1, 1000, 4097},
+     d_in in {33, 100, 128, 789}, d_out in {1, 65, 100}, f in {1, 3, 16},
+     shared stack rows, fully masked rows);
   4. training — a port ``Heta`` session on the GPU at each model's full
      width (hidden 64, 4 heads, learnable_dim 64, 2 layers, fanouts 4,3,
      learnable tables through the default 4 MiB cache) on ogbn-mag capped
@@ -66,15 +72,18 @@ non-zero exit and no result line):
      each path, the error against the plain version, kernel time (CUDA
      events over raw launches, inputs rotated through more than the 50 MB
      L2), the plain version's time, the library call's time where one
-     PyTorch call computes the same function, and the least time the card
-     could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
-     cores); relation_agg and stacked_softmax_combine at every shape their
+     PyTorch call computes the same function (kernels 2 and 8 also as one
+     CUDA graph of the same calls, which leaves out the host's launch cost:
+     ``graph_ms``, ``plain_graph_ms``, ``library_graph_ms``), and the least
+     time the card could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32
+     without tensor cores); relation_agg and stacked_softmax_combine at every shape their
      paths launched; at f = 1 the library call of stacked_mean_linear
      (torch.baddbmm) and of its dh (torch.bmm), the slot gather outside the
      timed call; plus the whole backward of the R-GCN autograd Function (dh
      + dw + db) at the leaf shape; flash_attention at the LM prefill's shape
      (bound by bf16 operations at 989 TFLOP/s, library call
-     scaled_dot_product_attention) and at one sq = 1 decode shape;
+     scaled_dot_product_attention) and at one sq = 1 decode shape; the
+     redesigned kernels' ptxas registers and spills again;
   8. card vs CPU — the same training session at a small scale on the GPU
      (kernels) and on the CPU (plain PyTorch), for R-GCN, R-GAT and HGT, the
      raf executor's R-GCN and the unfused R-GAT: 3-step losses within 1e-5,
@@ -99,8 +108,11 @@ non-zero exit and no result line):
 
 Phase 3 also holds flash_attention against attention_ref at the reference's
 ATTN_CASES, rows with no visible key, ragged non-causal, sq = 1 with
-q_offset and s = 2048 with d = 128 and GQA 24:8, in fp32 (atol/rtol 2e-5)
-and bf16 (3e-2).
+q_offset and s = 2048 with d = 128 and GQA 24:8, and at every (sq, sk) in
+{1, 129, 1000, 2047}^2 at every head dim (GQA 24:8 or 4:1, causal or not,
+windows, offsets, rows that see no key), in fp32 (atol/rtol 2e-5) and bf16
+(3e-2, against attention_ref and against fp32 attention of the same
+inputs).
 
 The last three lines are the card's name and power limit, one JSON object
 describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -149,15 +161,77 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the kernels redesigned for Hopper, by the kernel op whose library holds them
+REDESIGNED = {"stacked_mean_linear_dh": "stacked_mean_linear_dh_kernel",
+              "flash_attention": "flash_attention_wgmma_kernel"}
+
+
+def ptxas_entries(log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of every
+    entry function in one ``ptxas -v`` report, by its mangled name."""
+    import re
+
+    out, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), *spills))
+            entry = None
+    return out
+
+
+def sass_counts(lib: Path, ops=("HGMMA", "UTMALDG")) -> dict:
+    """How often each SASS opcode appears in ``cuobjdump -sass`` of ``lib``."""
+    import os
+    import re
+    import shutil
+
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump"
+    tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found: cannot show the SASS of the Hopper kernels")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in ops}
+
+
+def redesigned_report(build) -> dict:
+    """ptxas registers and spills of the redesigned kernels, and the Hopper
+    instructions in the flash attention library's SASS."""
+    rep = {name: [dict(kernel=k, registers=r, spill_stores=ss, spill_loads=sl)
+                  for k, r, ss, sl in ptxas_entries(build.build_log(name)) if fn in k]
+           for name, fn in REDESIGNED.items()}
+    rep["flash_attention_sass"] = sass_counts(build.library_path("flash_attention"))
+    return rep
+
+
+def log_redesigned(rep: dict) -> None:
+    for name in REDESIGNED:
+        for e in rep[name]:
+            log(f"  {name}: {e['kernel']} {e['registers']} registers, spill stores "
+                f"{e['spill_stores']} B, spill loads {e['spill_loads']} B (ptxas)")
+    log(f"  flash_attention SASS: {rep['flash_attention_sass']}")
+
+
 # --------------------------------------------------------------------------
 # timing and bounds
 # --------------------------------------------------------------------------
 
 
-def time_ms(fn, arg_sets, iters: int = 50) -> float:
+def time_ms(fn, arg_sets, iters: int = 50, graph: bool = False) -> float:
     """Mean ms per call of ``fn(*args)`` over ``iters`` calls cycling
     through ``arg_sets`` (rotated so the working set exceeds L2), timed
-    with CUDA events after a warm-up pass."""
+    with CUDA events after a warm-up pass.  ``graph``: the calls are
+    captured once into a CUDA graph and the replay is timed, which leaves
+    out the host's launch cost (10-20 us for a raw launch through ctypes,
+    more than a small kernel takes on the card)."""
     import torch
 
     for args in arg_sets:
@@ -165,6 +239,18 @@ def time_ms(fn, arg_sets, iters: int = 50) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
     start.record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
@@ -300,26 +386,33 @@ def time_gather(shape, device):
                 library_ms=library_ms, bytes=nbytes, flops=0)
 
 
-def dh_inputs(shape, seed, device):
+def dh_inputs(shape, seed, device, masked_rows=False):
+    """g, mask, w, slot_u of a dh shape; ``masked_rows`` also masks every 7th
+    row fully and puts the slots on the stack rows in turn (rb > U: rows
+    shared)."""
     import numpy as np
     import torch
 
     rb, n, f, di, do, U = shape
     r = np.random.default_rng(seed)
     g = torch.from_numpy(r.standard_normal((rb, n, do)).astype(np.float32)).to(device)
-    mask = torch.from_numpy(r.random((rb, n, f)) > 0.3).to(device)
-    w = torch.from_numpy((r.standard_normal((U, di, do)) * 0.1).astype(np.float32)).to(device)
+    mask = r.random((rb, n, f)) > 0.3
     slot_u = r.integers(0, U, rb)
+    if masked_rows:
+        mask[:, ::7, :] = False
+        slot_u = np.arange(rb) % U
+    mask = torch.from_numpy(mask).to(device)
+    w = torch.from_numpy((r.standard_normal((U, di, do)) * 0.1).astype(np.float32)).to(device)
     return g, mask, w, slot_u
 
 
-def check_dh(shape, seed, device) -> float:
+def check_dh(shape, seed, device, masked_rows=False) -> float:
     import torch
 
     from repro_torch.kernels.stacked_relation_agg import (
         stacked_mean_linear_dh, stacked_mean_linear_dh_ref, stage_slot_u)
 
-    g, mask, w, slot_u = dh_inputs(shape, seed, device)
+    g, mask, w, slot_u = dh_inputs(shape, seed, device, masked_rows)
     got = stacked_mean_linear_dh(g, mask, w, slot_u)
     staged = stacked_mean_linear_dh(g, mask, w, stage_slot_u(slot_u, w.shape[0], device))
     ref = stacked_mean_linear_dh_ref(g, mask, w, slot_u)
@@ -338,32 +431,31 @@ def time_dh(shape, device):
     import numpy as np
     import torch
 
-    from repro_torch.kernels.ops import resolve_blocks
     from repro_torch.kernels.stacked_relation_agg import ops as sml
 
     rb, n, f, di, do, U = shape
     out_bytes = rb * n * f * di * 4
     sets = [dh_inputs(shape, 200 + i, device) for i in range(copies_to_exceed_l2(out_bytes))]
-    bn, bo, bc = resolve_blocks(None, "stacked_mean_linear_dh")
     raw, plain = [], []
     for g, mask, w, slot_u in sets:
         dh = torch.empty((rb, n, f, di), dtype=torch.float32, device=device)
         u_dev = torch.from_numpy(np.asarray(slot_u, np.int32)).to(device)
-        raw.append((g, mask.view(torch.uint8), w, u_dev, dh, bn, bo, bc))
+        raw.append((g, mask.view(torch.uint8), w, u_dev, dh))
         plain.append((g, mask, w, u_dev))
+    # at f = 1 the function is one torch.bmm against the slot-gathered,
+    # transposed weights; the gather stays outside the timed call
+    lib = [(g, w[u.long()].transpose(1, 2)) for g, _, w, u in plain] if f == 1 else None
     ms = time_ms(sml.launch_dh_kernel, raw)
     plain_ms = time_ms(sml.stacked_mean_linear_dh_ref, plain)
-    library_ms = None
-    if f == 1:
-        # at f = 1 the function is one torch.bmm against the slot-gathered,
-        # transposed weights; the gather stays outside the timed call
-        library_ms = time_ms(torch.bmm, [(g, w[u.long()].transpose(1, 2))
-                                         for g, _, w, u in plain])
+    library_ms = time_ms(torch.bmm, lib) if lib else None
+    graph = dict(graph_ms=time_ms(sml.launch_dh_kernel, raw, graph=True),
+                 plain_graph_ms=time_ms(sml.stacked_mean_linear_dh_ref, plain, graph=True),
+                 library_graph_ms=time_ms(torch.bmm, lib, graph=True) if lib else None)
     nbytes = out_bytes + rb * n * do * 4 + rb * n * f + U * di * do * 4 + rb * 4
     flops = 2 * rb * n * di * do + rb * n * di + rb * n * f * di
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, bytes=nbytes, flops=flops)
+                library_ms=library_ms, bytes=nbytes, flops=flops, **graph)
 
 
 def time_backward(shape, device):
@@ -700,6 +792,9 @@ def time_softmax_combine(shape, device):
 # a recorded flash_attention shape: (b, h, hk, sq, sk, d, causal, window (-1:
 # none), q_offset, dtype code (0 fp32, 1 bf16))
 FLASH_TOL = {0: dict(atol=2e-5, rtol=2e-5), 1: dict(atol=3e-2, rtol=3e-2)}
+# bf16 checks: the kernel's Frobenius error against fp32 attention over the
+# plain bf16 path's, per case
+FLASH_FROBENIUS = []
 
 
 def flash_args(shape):
@@ -745,6 +840,17 @@ def check_flash(shape, seed, device) -> float:
         check(bool((err <= tol["atol"] + tol["rtol"] * want.float().abs()).all()),
               f"flash_attention {shape}: max abs err {float(err.max()):.3g} over tolerance")
         worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    if shape[-1] == 1:
+        # a check that scales with the output (|out| is about sqrt(e / keys),
+        # near the 3e-2 above at long rows): the kernel's Frobenius error
+        # against fp32 attention within 1.5x the plain bf16 path's own
+        exact = refs[1].float()
+        k_err = float((got.float() - exact).norm())
+        p_err = float((ref.float() - exact).norm())
+        check(k_err <= 1.5 * p_err + 1e-6 * float(exact.norm()),
+              f"flash_attention {shape}: Frobenius error {k_err:.4g} against fp32 attention, "
+              f"over 1.5x the plain bf16 path's {p_err:.4g}")
+        FLASH_FROBENIUS.append(k_err / p_err if p_err > 0 else 0.0)
     return worst
 
 
@@ -773,26 +879,32 @@ def time_flash(shape, device):
     raw = [(q, k, v, torch.empty_like(q), kw["causal"], kw["window"], kw["q_offset"])
            for q, k, v in sets]
     ms = time_ms(fa.launch_kernel, raw, iters=20)
+    graph_ms = time_ms(fa.launch_kernel, raw, iters=20, graph=True)
     views = [tuple(t.transpose(1, 2) for t in qkv) for qkv in sets]
     plain_ms = time_ms(attention_ref, [(*qkv, kw["causal"], kw["window"], kw["q_offset"])
                                        for qkv in views], iters=10)
     # the library yardstick where one call computes the same function: no
     # window, and either every key visible or causal from position 0
-    library_ms = None
+    library_ms = library_graph_ms = None
     if window < 0 and (not causal or off >= sk - 1 or off == 0):
         is_causal = bool(causal) and off < sk - 1
-        library_ms = time_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=is_causal,
-                                                           enable_gqa=True),
-            views, iters=20)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=is_causal, enable_gqa=True)
+
+        library_ms = time_ms(sdpa, views, iters=20)
+        library_graph_ms = time_ms(sdpa, views, iters=20, graph=True)
     pairs = flash_pairs(sq, sk, causal, window, off)
     nbytes = in_bytes + b * sq * h * d * esize
     flops = 4 * d * pairs * b * h  # q k^T and p v over the visible pairs
     peak = FP32_FLOP_PER_S if code == 0 else BF16_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    # attention_ref copies its mask from the host, which a CUDA graph cannot
+    # capture: its graph time is not measured
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, bytes=nbytes, flops=flops)
+                library_ms=library_ms, bytes=nbytes, flops=flops, graph_ms=graph_ms,
+                plain_graph_ms=None, library_graph_ms=library_graph_ms)
 
 
 # phase 3's cases of kernel 8: the reference's ATTN_CASES, the rows with no
@@ -1562,14 +1674,19 @@ def kernel_table(paths: dict, errs: dict, device):
                     f" ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']}), "
                     f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s, "
                     f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+                if "graph_ms" in t:
+                    log("      as one CUDA graph (no host launch cost): " + ", ".join(
+                        f"{k} {'none' if t[k] is None else f'{t[k]:.4f} ms'}"
+                        for k in ("graph_ms", "plain_graph_ms", "library_graph_ms")))
         main = next(timed[p]["timed"][0] for p in paths if timed[p]["timed"])
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "graph_ms",
+                "plain_graph_ms", "library_graph_ms")
         entries.append({
             "name": name, "route": info.route, "source": info.source,
             "replaces": info.replaces,
             "launches": sum(t["launches"] for t in timed.values()),
             "max_abs_err": errs[name], "shapes_checked": len(union),
-            "shape": main["shape"], **{k: main[k] for k in keys},
+            "shape": main["shape"], **{k: main[k] for k in keys if k in main},
             "paths": timed,
         })
     return entries
@@ -1588,6 +1705,23 @@ ATTN_RAGGED = [(5, 19, 4, 23, 4, 8, 3), (4, 33, 1, 789, 4, 16, 3), (3, 130, 3, 1
                (2, 7, 16, 37, 2, 8, 2), (3, 45, 64, 100, 4, 16, 2), (2, 9, 100, 33, 4, 16, 2),
                (3, 50, 5, 70, 3, 24, 2), (6, 4096, 3, 128, 4, 16, 6),
                (2, 1024, 16, 128, 4, 16, 2)]
+
+
+# kernel 2's ragged shapes (rb, n, f, d_in, d_out, U): n in {1, 1000, 4097},
+# d_in in {33, 100, 128, 789}, d_out in {1, 65, 100}, f in {1, 3, 16}; five
+# slots on two stack rows, every 7th row fully masked
+DH_RAGGED = [(5, n, f, di, do, 2) for n in (1, 1000, 4097) for di in (33, 100, 128, 789)
+             for do in (1, 65, 100) for f in (1, 3, 16)]
+# kernel 8's ragged cases (b, h, hk, sq, sk, d, causal, window, q_offset):
+# every (sq, sk) in {1, 129, 1000, 2047}^2 at every head dim, each with one of
+# six settings in turn (GQA 24:8 or 4:1, causal or not, a window, a q_offset,
+# rows that see no key)
+FLASH_SETTINGS = [(24, 8, 1, -1, 0), (4, 1, 0, -1, 0), (24, 8, 1, 100, 0), (4, 1, 1, -1, 37),
+                  (4, 1, 0, 64, 0), (4, 1, 0, 4, 3000)]
+FLASH_RAGGED = [(1 + i % 2, *FLASH_SETTINGS[i % 6][:2], sq, sk, d, *FLASH_SETTINGS[i % 6][2:])
+                for i, (sq, sk, d) in enumerate((a, b, d) for a in (1, 129, 1000, 2047)
+                                                for b in (1, 129, 1000, 2047)
+                                                for d in (32, 64, 80, 128))]
 
 
 # (n, f, d_in, d_out) of kernel 6: tests/test_kernels.py's AGG_SHAPES, one
@@ -1654,6 +1788,13 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
     report["build_s"] = wall
+    report["redesigned"] = redesigned_report(build)
+    log_redesigned(report["redesigned"])
+    check(all(report["redesigned"][name] for name in REDESIGNED),
+          "a redesigned kernel is missing from its ptxas report")
+    check(all(report["redesigned"]["flash_attention_sass"].values()),
+          "the flash attention library holds no HGMMA or no UTMALDG: the Hopper kernel "
+          "was not built")
 
     log("== 3 kernels vs plain (ragged shapes and the training paths')")
     errs = {name: 0.0 for name in TIMERS}
@@ -1664,6 +1805,9 @@ def main(argv=None) -> int:
     for i, shape in enumerate(RAGGED + [(3, 1024, 4, 64, 64, 3), (6, 4096, 3, 128, 64, 6)]):
         errs["stacked_mean_linear_dh"] = max(errs["stacked_mean_linear_dh"],
                                              check_dh(shape, i, DEVICE))
+    for i, shape in enumerate(DH_RAGGED):
+        errs["stacked_mean_linear_dh"] = max(errs["stacked_mean_linear_dh"],
+                                             check_dh(shape, 500 + i, DEVICE, masked_rows=True))
     for i, (shape, dt) in enumerate([((50, 37, 9), "int32"), ((5, 1, 3), "int64"),
                                      ((1000, 64, 256), "int64")]):
         check_gather(shape, i, DEVICE, dt)
@@ -1688,12 +1832,14 @@ def main(argv=None) -> int:
                                               check_softmax_combine(shape, i, DEVICE))
     # kernel 8 at the reference's ATTN_CASES and the LM's shapes, fp32 and bf16
     flash_errs = [0.0, 0.0]
-    for i, case in enumerate(FLASH_CASES):
+    for i, case in enumerate(FLASH_CASES + FLASH_RAGGED):
         for code in (0, 1):
             flash_errs[code] = max(flash_errs[code], check_flash(case + (code,), i, DEVICE))
     errs["flash_attention"] = max(flash_errs)
     log(f"  ok; max abs err {errs}; flash_attention fp32 {flash_errs[0]:.3g}, bf16 "
-        f"{flash_errs[1]:.3g}")
+        f"{flash_errs[1]:.3g}; bf16 Frobenius error against fp32 attention at most "
+        f"{max(FLASH_FROBENIUS):.3f}x the plain bf16 path's (limit 1.5x)")
+    report["flash_bf16_frobenius_ratio"] = max(FLASH_FROBENIUS)
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
@@ -1741,6 +1887,7 @@ def main(argv=None) -> int:
     log(f"  autograd backward of stacked_mean_linear (dh + dw + db) at {leaf}: "
         f"{back_ms:.4f} ms")
     report["backward_ms"] = dict(shape=list(leaf), ms=back_ms)
+    log_redesigned(report["redesigned"])
     err = check_flash(FLASH_DECODE_SHAPE, 77, DEVICE)
     t = time_flash(FLASH_DECODE_SHAPE, DEVICE)
     log(f"  flash_attention at the decode shape {FLASH_DECODE_SHAPE} (not on the path: "

@@ -20,10 +20,10 @@
 // 1.03e11 FLOP (two products of 2 s^2 d / 2 per head), 0.104 ms at
 // 989 TFLOP/s, against 134 MB of q, k, v and out, 0.040 ms at 3.35 TB/s.
 //
-// Design, common to both kernels below:
-//   * one block per (batch * head, tile of kBQ = 64 queries); the TPU's
-//     sequential k axis is a loop inside the block over tiles of kBK = 64
-//     keys, staged in dynamic shared memory;
+// Design, common to the three kernels below:
+//   * one block per (batch * head, tile of kBQ = 64 queries, 128 in the
+//     wgmma kernel); the TPU's sequential k axis is a loop inside the block
+//     over tiles of kBK = 64 keys (128), staged in dynamic shared memory;
 //   * the loop bounds skip every k tile outside the causal/window band,
 //     computed once per q tile (the longest causal tiles are scheduled
 //     first); inside a tile each score is masked explicitly (key < sk,
@@ -40,21 +40,42 @@
 //     0 (the Pallas kernel gives such a row the mean of the masked v rows,
 //     since exp(-1e30 - (-1e30)) = 1; the oracle gives 0).
 //
-// bf16 (the model's type): the two products run on the tensor cores as
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), 4 warps of 16 query rows
-// each.  A warp keeps its q fragments, its 16 x 64 score tile and its
-// 16 x d accumulator in registers; the score fragments are the A operand of
-// p @ v as they stand (the m16n8k16 C and A layouts line up), so p never
-// goes through shared memory.  K and V tiles are staged with 16-byte loads
-// (operands 16-byte aligned, strides multiples of 8: the wrapper checks).
-// wgmma, TMA and double-buffered staging are later work.
-//
+// bf16 (the model's type), two kernels; the C entry point picks one:
+//   * d = 64 or 128 with sq >= 128 (the LM prefill and every long prompt):
+//     the Hopper kernel flash_attention_wgmma_kernel.  One block per (batch *
+//     head, tile of 128 queries), 384 threads in three warpgroups.  Warpgroup
+//     2 is the producer: after `setmaxnreg` drops it to 40 registers, one of
+//     its threads loads the q tile once and keeps a two-stage ring of
+//     128-key K and V tiles full with TMA (cp.async.bulk.tensor from tensor
+//     maps built on the operands' own [b, s, h, d] strides, so GQA is a
+//     coordinate and ragged sq and sk are the TMA's zero fill), completing on
+//     `full` mbarriers and waiting on `empty` ones.  Warpgroups 0 and 1 (232
+//     registers each) own 64 query rows apiece: s = q k^T by wgmma
+//     m64n128k16 with both operands in shared memory (K-major, 128-byte
+//     swizzle), fp32 accumulate; the online softmax in registers (scores in
+//     log2 units, masked scores skipped as -inf, masks evaluated only on
+//     tiles that cross sk or the band's edge); then o += p v by wgmma
+//     m64nDk16 with p as the register A operand (bf16; the accumulator
+//     layout of s is the A layout) and v as B through the transpose bit (v
+//     stays d-contiguous).  The two warpgroups run their softmax and their
+//     products in turn against the same ring, so one's wgmma overlaps the
+//     other's softmax, and TMA overlaps both.
+//   * the other head dims (32, 80) and short sq (decode, sq = 1): the
+//     mma.sync kernel flash_attention_bf16_kernel, m16n8k16 from 4 warps
+//     over 64-query x 64-key tiles, K and V staged with 16-byte loads (the
+//     first tensor-core version; a 128-query tile would leave a decode
+//     step's block idle).  The scores' C fragments are the A fragments of p,
+//     so p never goes through shared memory.
+// Both keep the rounding of the Pallas kernel: p is rounded to bf16 before
+// p @ v, the output written in bf16.
+
 // fp32 (tests, reduced configs): scalar fp32 FMAs on the CUDA cores (the
 // tensor cores would round the operands): 256 threads, each owning 4 query
 // rows x 4 key columns of the score tile and 4 rows x d/16 columns of the
 // output; a row's max and sum are reduced across its 16 threads with
 // shuffles.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -415,13 +436,418 @@ __global__ void __launch_bounds__(kThreads16) flash_attention_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at d = 64 and 128 with sq >= 128: wgmma + TMA, warp-specialized
+// ---------------------------------------------------------------------------
+
+constexpr int kWQ = 128;        // queries per block: two consumer warpgroups of 64
+constexpr int kWK = 128;        // keys per tile
+constexpr int kStages = 2;      // depth of the K/V ring
+constexpr int kWThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kAtom = 64;       // bf16 columns of one 128-byte swizzled row
+
+// byte offsets inside the 1024-aligned dynamic shared memory; each operand
+// tile is D / 64 column blocks of [rows][64] bf16 in TMA's 128-byte swizzle
+template <int D>
+struct WgLayout {
+  static constexpr int kCB = D / kAtom;
+  static constexpr int kBlock = kWQ * kAtom * 2;  // one column block (kWQ == kWK)
+  static constexpr int kQBytes = kWQ * D * 2;
+  static constexpr int kKVBytes = kWK * D * 2;    // one K or one V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;  // q_full, full[kStages], empty[kStages]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// until the phase of `bar` with this parity has completed; a wait of more
+// than 10 s is a fault of the pipeline and traps (a launch error, not a hung
+// card)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = global_ns();
+    else if (global_ns() - t0 > 10000000000ull) __trap();
+  }
+}
+
+// one box of a 4-d tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`; out-of-range elements arrive as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; lbo and sbo in 16-byte
+// units (K-major: lbo unused, sbo = 1024 bytes between 8-row groups;
+// MN-major: lbo between 64-column blocks, sbo between 8-row groups of K)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) | ((uint64_t)sbo << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of wgmma's registers across the
+// asynchronous instructions
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (64 x 128) = (accum ? d : 0) + a (64 x 16) b (16 x 128); a and b K-major in
+// shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accum) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accum));
+}
+
+// d (64 x 128) += a (64 x 16, registers) b (16 x 128); b MN-major in shared
+// memory (128-byte swizzle, the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64) += a (64 x 16, registers) b (16 x 64); b MN-major in shared
+// memory (128-byte swizzle, the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n64(o, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1) flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out, Problem p) {
+  using L = WgLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle needs 1024
+  const uint32_t q_full = base + L::kBar;
+  auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + kStages + s); };
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWQ;  // the longest causal tiles first
+  // the band of keys the tile can see, in whole key tiles
+  const int qpos_hi = min(q0 + kWQ, p.sq) - 1 + p.q_offset;
+  int k_begin = 0, k_end = p.sk;
+  if (p.causal) k_end = min(k_end, qpos_hi + 1);
+  if (p.window >= 0) k_begin = max(0, q0 + p.q_offset - p.window + 1);
+  const int kt0 = (k_begin / kWK) * kWK;
+  const int n_tiles = k_end > kt0 ? (k_end - kt0 + kWK - 1) / kWK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int cb = 0; cb < L::kCB; ++cb)
+        tma_load_4d(base + L::kQ + cb * L::kBlock, &q_map, q_full, cb * kAtom, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages, k0 = kt0 + j * kWK;
+        mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(full(s), 2 * L::kKVBytes);
+        for (int cb = 0; cb < L::kCB; ++cb) {
+          tma_load_4d(base + L::kK + s * L::kKVBytes + cb * L::kBlock, &k_map, full(s),
+                      cb * kAtom, hk, k0, b);
+          tma_load_4d(base + L::kV + s * L::kKVBytes + cb * L::kBlock, &v_map, full(s),
+                      cb * kAtom, hk, k0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows [wg * 64, wg * 64 + 64) of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int row0 = q0 + wg * 64 + (tid / 32) * 16 + g;  // this lane's rows row0, row0 + 8
+    const int qp0 = row0 + p.q_offset, qp1 = qp0 + 8;
+    const int wq_lo = q0 + wg * 64 + p.q_offset;
+    const int wq_hi = min(q0 + wg * 64 + 64, p.sq) - 1 + p.q_offset;
+    const float sl2 = p.scale * 1.4426950408889634f;  // scores in log2 units
+    const uint32_t q_s = base + L::kQ + wg * 64 * kAtom * 2;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this lane's share
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages, k0 = kt0 + j * kWK;
+      const uint32_t k_s = base + L::kK + s * L::kKVBytes;
+      const uint32_t v_s = base + L::kV + s * L::kKVBytes;
+      mbar_wait(full(s), (j / kStages) & 1);
+
+      // sc = q k^T: 64 rows x 128 keys, D / 16 steps along d
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * L::kBlock + (kk % 4) * 32;
+        wgmma_ss_n128(sc, sw128_desc(q_s + off, 1, 64), sw128_desc(k_s + off, 1, 64), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+
+      // masks only where the tile reaches past sk or the band's edges
+      const bool full_tile = k0 + kWK <= p.sk && (!p.causal || k0 + kWK - 1 <= wq_lo) &&
+                             (p.window < 0 || k0 > wq_hi - p.window);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * jn + e] * sl2;
+          if (!full_tile && !visible(p, e < 2 ? qp0 : qp1, k0 + 8 * jn + 2 * t + (e & 1)))
+            x = -INFINITY;
+          sc[4 * jn + e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // across the 4 lanes of a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      // a row with nothing visible so far keeps m = -inf, l = 0, o = 0
+      const float b0 = n0 == -INFINITY ? 0.f : n0, b1 = n1 == -INFINITY ? 0.f : n1;
+      const float alpha0 = exp2f(m0 - b0), alpha1 = exp2f(m1 - b1);
+      m0 = n0;
+      m1 = n1;
+      uint32_t pa[8][4];  // p rounded to bf16: the A fragments of the 8 steps of p v
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const float e0 = exp2f(sc[4 * jn] - b0), e1 = exp2f(sc[4 * jn + 1] - b0);
+        const float e2 = exp2f(sc[4 * jn + 2] - b1), e3 = exp2f(sc[4 * jn + 3] - b1);
+        sum0 += e0 + e1;
+        sum1 += e2 + e3;
+        pa[jn / 2][(jn % 2) * 2] = pack(e0, e1);
+        pa[jn / 2][(jn % 2) * 2 + 1] = pack(e2, e3);
+      }
+      l0 = alpha0 * l0 + sum0;
+      l1 = alpha1 * l1 + sum1;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= alpha0;
+        o[4 * i + 1] *= alpha0;
+        o[4 * i + 2] *= alpha1;
+        o[4 * i + 3] *= alpha1;
+      }
+
+      // o += p v: 8 steps of 16 keys; v is MN-major (d contiguous)
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWK / 16; ++kk)
+        wgmma_pv<D>(o, pa[kk], sw128_desc(v_s + kk * 16 * kAtom * 2, L::kBlock / 16, 64));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+      mbar_arrive(empty(s));
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+    bf16* ob = out + b * p.os.b + h * p.os.h;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = 8 * i + 2 * t;
+      if (row0 < p.sq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)row0 * p.os.s + c) =
+            pack(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+      if (row0 + 8 < p.sq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)(row0 + 8) * p.os.s + c) =
+            pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// a [B, S, Hx, D] bf16 operand with element strides st as a 4-d tensor map
+// (d, head, position, batch) whose box is 64 columns x one head x 128 rows
+bool encode_map(CUtensorMap* map, const void* ptr, long long B, long long S, long long Hx, int D,
+                const Strides& st) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hx, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kAtom, 1, (cuuint32_t)kWK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, const Problem& p,
+                 long long B, long long KV, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!encode_map(&qm, q, B, p.sq, p.H, D, p.qs) || !encode_map(&km, k, B, p.sk, KV, D, p.ks) ||
+      !encode_map(&vm, v, B, p.sk, KV, D, p.vs))
+    return (int)cudaErrorInvalidValue;
+  const int smem = WgLayout<D>::kBytes + 1024;  // + room to align the base to 1024
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * p.H), (unsigned)((p.sq + kWQ - 1) / kWQ));
+  flash_attention_wgmma_kernel<D><<<grid, kWThreads, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(out), p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, const Problem& p,
-           long long BH, cudaStream_t stream) {
+           long long B, long long KV, cudaStream_t stream) {
   constexpr bool kF32 = sizeof(T) == 4;
+  if constexpr (!kF32 && (D == 64 || D == 128)) {
+    if (p.sq >= kWQ && p.sk >= 1) return launch_wgmma<D>(q, k, v, out, p, B, KV, stream);
+  }
   constexpr size_t smem = kF32 ? smem_fp32<D>() : smem_bf16<D>();
-  const dim3 grid((unsigned)BH, (unsigned)((p.sq + kBQ - 1) / kBQ));
+  const dim3 grid((unsigned)(B * p.H), (unsigned)((p.sq + kBQ - 1) / kBQ));
   cudaError_t err;
   if constexpr (kF32) {
     err = cudaFuncSetAttribute(flash_attention_fp32_kernel<D>,
@@ -443,12 +869,12 @@ int launch(const void* q, const void* k, const void* v, void* out, const Problem
 
 template <typename T>
 int dispatch_d(long long d, const void* q, const void* k, const void* v, void* out,
-               const Problem& p, long long BH, cudaStream_t s) {
+               const Problem& p, long long B, long long KV, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, p, BH, s);
-    case 64: return launch<T, 64>(q, k, v, out, p, BH, s);
-    case 80: return launch<T, 80>(q, k, v, out, p, BH, s);
-    case 128: return launch<T, 128>(q, k, v, out, p, BH, s);
+    case 32: return launch<T, 32>(q, k, v, out, p, B, KV, s);
+    case 64: return launch<T, 64>(q, k, v, out, p, B, KV, s);
+    case 80: return launch<T, 80>(q, k, v, out, p, B, KV, s);
+    case 128: return launch<T, 128>(q, k, v, out, p, B, KV, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -488,12 +914,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.q_offset = (int)q_offset;
   p.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_d<float>(d, q, k, v, out, p, B * H, s);
+  if (dtype == 0) return dispatch_d<float>(d, q, k, v, out, p, B, KV, s);
   if (dtype == 1) {
     const void* ptrs[4] = {q, k, v, out};
     for (int i = 0; i < 4; ++i)
       if (!aligned16(ptrs[i], strides + 3 * i)) return (int)cudaErrorMisalignedAddress;
-    return dispatch_d<bf16>(d, q, k, v, out, p, B * H, s);
+    return dispatch_d<bf16>(d, q, k, v, out, p, B, KV, s);
   }
   return (int)cudaErrorInvalidValue;
 }

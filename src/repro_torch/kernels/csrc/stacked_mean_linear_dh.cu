@@ -11,113 +11,249 @@
 // chunk) with a VMEM accumulator carried across the d_out chunks and the
 // weight block picked through a scalar-prefetched slot_u.
 //
-// What bounds it on an H100: memory.  It writes rb*n*f*d_in*4 bytes of dh
-// and reads rb*n*d_out*4 bytes of g plus the mask and the weights, against
-// 2*rb*n*d_in*d_out operations: at d_out = 64 and f = 3 that is about
-// 10 FLOP per byte, below the ~20 the fp32 CUDA cores need to become the
-// limit.  The f-fold broadcast write of dh is most of the traffic.
+// What bounds it on an H100: the f-fold write of dh and the fp32 product.
+// It writes rb*n*f*d_in*4 bytes of dh and reads rb*n*d_out*4 bytes of g plus
+// the mask and the weights, against 2*rb*n*d_in*d_out operations: at the
+// R-GCN leaf (f = 3, d_in 128, d_out 64) 10 FLOP per byte, bytes-bound; at
+// the attention models' q side (f = 1) 26 FLOP per byte, bound by the fp32
+// CUDA cores (67 TFLOP/s).  So the product has to run near the fp32 rate,
+// which a kernel that issues a shared-memory load per FMA cannot do.
 //
-// Design:
-//   * one block per (tile of block_n node rows, tile of block_in input
-//     columns, slot); blocks run in any order, so the d_out axis that the
-//     TPU grid carried in scratch is a loop inside the block;
-//   * the block reads slot_u[s] itself and offsets into the [U, d_in, d_out]
-//     stack: no per-slot copy of a weight;
-//   * per d_out chunk of block_out columns, the g tile [block_n, block_out]
-//     and the weight tile [block_in, block_out] are staged in shared memory
-//     (both read along d_out, so the loads coalesce; the weight tile's rows
-//     are padded by one float so that neighbouring columns fall in
-//     different banks), and each thread accumulates
-//     dmean[r, c] = sum_o g[r, o] * w[c, o] in fp32 registers for one column
-//     c and up to kMaxRows rows, reusing its weight value across the rows;
-//   * the sum is divided by max(cnt, 1), cnt counted from the mask row as
-//     the forward kernel does, and written f times, masked:
-//     dh[s, r, j, c] = dmean[r, c] * mask[s, r, j]; neighbouring threads own
-//     neighbouring c, so every store of a warp is one contiguous run;
-//   * ragged n, d_in and d_out are masked inside the kernel: no padded
-//     copies of any operand (the reference pads and slices).
-// Later work (not here): 16-byte stores, wgmma/TMA for the product, bf16.
+// Design: an fp32 GEMM on the CUDA cores, dmean = g @ w[u]^T per slot
+// (M = rows, N = d_in, K = d_out), with a broadcast epilogue.
+//   * one block per (tile of BM = 128 rows, tile of BN = 64 d_in columns,
+//     slot); 128 threads in 4 warps, each warp over 32 rows x 64 columns,
+//     each thread owning an 8 x 8 register micro-tile (rows ly + 4 i,
+//     columns 4 lx + j and 32 + 4 lx + j for lane (ly, lx) = (lane / 8,
+//     lane % 8)); up to 3 blocks share an SM (163 registers a thread, no
+//     spills);
+//   * the block reads slot_u[s] itself and stages that slot's weight slice
+//     [BN][d_out] (as it lies in memory, 16-byte chunks XOR-swizzled by row)
+//     in shared memory once, when d_out <= 128 (every path: d_out = 64); a
+//     wider d_out is staged in 128-deep slices, one after the other;
+//   * g streams through a two-stage ring of [BM][32] chunks (row-major, as g
+//     lies in memory); both g and w are copied by cp.async (16-byte copies
+//     when d_out % 4 == 0, else 4-byte; out-of-range elements zero-filled by
+//     the copy itself), and the next g chunk is in flight while the current
+//     one is multiplied;
+//   * per 4-deep k step a thread reads 8 float4 of g (4 deep in each of its
+//     8 rows) and 8 float4 of w (4 deep in each of its 8 columns): 16
+//     16-byte loads feed 256 FMAs, against one load per FMA before.  A
+//     16-byte load costs the shared memory 4 cycles a warp whatever the
+//     addresses, so the loads per FMA, not bank conflicts, set the pace:
+//     8 x 8 balances them with the FMA rate (8 x 4 left the kernel bound by
+//     shared-memory loads).  The swizzle keeps the 8 column rows of w a warp
+//     reads at once in 8 different bank groups;
+//   * the epilogue takes cnt and the first 32 mask bits of each row from
+//     shared memory (read from the mask while the first chunk is in
+//     flight), scales by 1 / max(cnt, 1) and writes the f masked copies as
+//     float4 stores (d_in % 4 == 0; scalar stores otherwise, chosen inside
+//     the kernel);
+//   * ragged n, d_in and d_out are masked in the kernel: no padded copies.
+// Precision: full fp32 FMAs, no TF32 and no tensor cores (atol = rtol =
+// 1e-5 against the plain version).  A 3xTF32 mma.sync version (each operand
+// split into tf32 high and low parts, three products) was faster and inside
+// 1e-5 of the plain version at every shape checked, but three training steps
+// of Adam on the learnable tables amplified its low-bit differences past the
+// card-vs-CPU 1e-5 on the embeddings (chip_smoke.py phase 8), so the product
+// stays on the CUDA cores.  No atomics: every sum runs over d_out in
+// increasing order, so the result is the same bit for bit from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxRows = 16;  // rows per thread: block_n <= kMaxRows * (kThreads / block_in)
+constexpr int kThreads = 128;
+constexpr int kBM = 128;       // rows of a block: 4 warps of 32
+constexpr int kBN = 64;        // d_in columns of a block
+constexpr int kKC = 32;        // depth of one streamed g chunk
+constexpr int kGP = kKC + 4;   // row pitch of a g chunk (16-byte aligned rows)
+constexpr int kMaxKW = 128;    // deepest weight slice a block keeps resident
+static_assert(kThreads == kBM, "one thread reads the mask row of each row");
 
-__global__ void __launch_bounds__(kThreads) stacked_mean_linear_dh_kernel(
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__global__ void __launch_bounds__(kThreads, 3) stacked_mean_linear_dh_kernel(
     const float* __restrict__ g, const uint8_t* __restrict__ mask,
     const float* __restrict__ w, const int* __restrict__ slot_u,
-    float* __restrict__ dh, long long n, int f, int d_in, int d_out, int bn,
-    int bo, int bc) {
-  extern __shared__ float smem[];
-  const int ws = bo + 1;             // padded weight-tile row
-  float* g_s = smem;                 // [bn][bo]
-  float* w_s = g_s + bn * bo;        // [bc][bo + 1]
-  float* cnt_s = w_s + bc * ws;      // [bn]
+    float* __restrict__ dh, long long n, int f, int d_in, int d_out, int kw) {
+  // 4 warps, each over 32 rows x 64 columns of the tile: lane (ly, lx) =
+  // (lane / 8, lane % 8) owns rows ly + 4 i (i < 8) and columns 4 lx + j and
+  // 32 + 4 lx + j (j < 4)
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                   // [kBN][kw], 16-byte chunks swizzled
+  float* g_s = w_s + kBN * kw;         // [2][kBM][kGP]
+  // per row: the count of visible neighbours and the mask bits of its first 32
+  int* cnt_s = reinterpret_cast<int*>(g_s + 2 * kBM * kGP);  // [kBM]
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(cnt_s + kBM);  // [kBM]
 
-  const long long row0 = (long long)blockIdx.x * bn;
-  const int col0 = blockIdx.y * bc;
   const int s = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lanes = kThreads / bc;   // row lanes; bc divides kThreads
-  const int c = tid % bc;
-  const int r0 = tid / bc;
+  const int col0 = blockIdx.y * kBN;
+  const long long row0 = (long long)blockIdx.x * kBM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rbase = warp * 32 + lane / 8;  // this thread's rows rbase + 4 i
+  const int cbase = (lane % 8) * 4;        // columns cbase + 32 h + j
   const int u = slot_u[s];
   const float* gs = g + (long long)s * n * d_out;
   const uint8_t* ms = mask + (long long)s * n * f;
   const float* wu = w + (long long)u * d_in * d_out;
+  const int nk = max(1, (d_out + kKC - 1) / kKC);  // g chunks
+  const int nkw = kw / kKC;                  // g chunks per weight slice
+  const bool vec_g = d_out % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const bool vec_w = d_out % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool vec_dh = d_in % 4 == 0 && reinterpret_cast<uintptr_t>(dh) % 16 == 0;
 
-  for (int r = tid; r < bn; r += kThreads) {
-    const long long row = row0 + r;
-    float cnt = 0.f;
-    if (row < n) {
-      for (int j = 0; j < f; ++j) cnt += ms[row * f + j] ? 1.f : 0.f;
-    }
-    cnt_s[r] = fmaxf(cnt, 1.f);
-  }
-
-  float acc[kMaxRows];
-#pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) acc[i] = 0.f;
-
-  for (int o0 = 0; o0 < d_out; o0 += bo) {
-    for (int e = tid; e < bn * bo; e += kThreads) {
-      const long long row = row0 + e / bo;
-      const int o = o0 + e % bo;
-      g_s[e] = (row < n && o < d_out) ? gs[row * d_out + o] : 0.f;
-    }
-    for (int e = tid; e < bc * bo; e += kThreads) {
-      const int k = e / bo;
-      const int o = e % bo;
-      const int col = col0 + k;
-      w_s[k * ws + o] =
-          (col < d_in && o0 + o < d_out) ? wu[(long long)col * d_out + o0 + o] : 0.f;
-    }
-    __syncthreads();
-    for (int o = 0; o < bo; ++o) {
-      const float wv = w_s[c * ws + o];
-#pragma unroll
-      for (int i = 0; i < kMaxRows; ++i) {
-        const int r = r0 + i * lanes;
-        if (r < bn) acc[i] = fmaf(g_s[r * bo + o], wv, acc[i]);
+  // the weight slice w[u][col0 : col0 + kBN][o0 : o0 + kw] as w_s[c][o], as
+  // it lies in memory, by cp.async in a group of its own; the 16-byte chunk
+  // j of row c sits at chunk j ^ (c / 4 % 8), so the 8 column groups of a
+  // warp, reading rows cbase + i at one chunk, hit 8 different bank groups
+  auto stage_w = [&](int o0) {
+    if (vec_w) {
+      for (int e = tid; e < kBN * (kw / 4); e += kThreads) {
+        const int c = e / (kw / 4), j = e % (kw / 4);
+        const bool in = col0 + c < d_in && o0 + 4 * j < d_out;
+        cp_async16(w_s + c * kw + ((j ^ (c / 4 % 8)) * 4),
+                   in ? wu + (long long)(col0 + c) * d_out + o0 + 4 * j : wu, in);
+      }
+    } else {
+      for (int e = tid; e < kBN * kw; e += kThreads) {
+        const int c = e / kw, o = e % kw;
+        const bool in = col0 + c < d_in && o0 + o < d_out;
+        cp_async4(w_s + c * kw + ((o / 4) ^ (c / 4 % 8)) * 4 + o % 4,
+                  in ? wu + (long long)(col0 + c) * d_out + o0 + o : wu, in);
       }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  // g chunk q (d_out columns q * kKC ..) into ring slot q % 2
+  auto stage_g = [&](int q) {
+    const int k0 = q * kKC;
+    float* dst = g_s + (q % 2) * kBM * kGP;
+    if (vec_g) {
+      for (int e = tid; e < kBM * (kKC / 4); e += kThreads) {
+        const int r = e / (kKC / 4), c = (e % (kKC / 4)) * 4;
+        const bool in = row0 + r < n && k0 + c < d_out;
+        cp_async16(dst + r * kGP + c, in ? gs + (row0 + r) * d_out + k0 + c : gs, in);
+      }
+    } else {
+      for (int e = tid; e < kBM * kKC; e += kThreads) {
+        const int r = e / kKC, c = e % kKC;
+        const bool in = row0 + r < n && k0 + c < d_out;
+        cp_async4(dst + r * kGP + c, in ? gs + (row0 + r) * d_out + k0 + c : gs, in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  stage_w(0);
+  stage_g(0);
+  // the block's mask rows, read while the first copies are in flight
+  {
+    const long long row = row0 + tid;  // kThreads == kBM
+    int cnt = 0;
+    uint32_t bits = 0;
+    if (row < n) {
+      const uint8_t* mp = ms + row * f;
+      for (int j = 0; j < f; ++j) {
+        const int m = mp[j] ? 1 : 0;
+        cnt += m;
+        if (j < 32) bits |= (uint32_t)m << j;
+      }
+    }
+    cnt_s[tid] = max(cnt, 1);
+    bits_s[tid] = bits;
+  }
+  float acc[8][8] = {};  // [row i][32-column half h * 4 + j]
+  for (int q = 0; q < nk; ++q) {
+    // a deeper d_out restages the weight slice (the previous iteration's
+    // closing barrier has freed it) in a group older than chunk q + 1's, so
+    // the wait below covers it
+    if (q > 0 && q % nkw == 0) stage_w(q * kKC);
+    if (q + 1 < nk) {
+      stage_g(q + 1);   // in flight while chunk q is multiplied
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();    // chunk q, the weight slice and the mask rows visible to all
+
+    const float* gb = g_s + (q % 2) * kBM * kGP;
+    const float* wb = w_s + cbase * kw;     // rows cbase + 32 h + j
+    const int j0 = (q % nkw) * (kKC / 4);   // first 16-byte chunk of chunk q
+    const int sw = lane % 8;                // the rows' swizzle: (cbase + 32 h) / 4 % 8
+#pragma unroll 1  // unrolled, the loads of the next step spill registers
+    for (int kk = 0; kk < kKC; kk += 4) {
+      float4 bw[8];  // w[u][c][k .. k + 3] of this thread's 8 columns c
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bw[j] = *reinterpret_cast<const float4*>(wb + ((j / 4) * 32 + j % 4) * kw +
+                                                 ((j0 + kk / 4) ^ sw) * 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(gb + (rbase + 4 * i) * kGP + kk);
+#pragma unroll
+        for (int k4 = 0; k4 < 4; ++k4) {
+          const float av = k4 == 0 ? a.x : k4 == 1 ? a.y : k4 == 2 ? a.z : a.w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float bv = k4 == 0 ? bw[j].x : k4 == 1 ? bw[j].y : k4 == 2 ? bw[j].z : bw[j].w;
+            acc[i][j] = fmaf(av, bv, acc[i][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();    // ring slot q % 2 (and the weight slice) free again
   }
 
-  const int col = col0 + c;
-  if (col >= d_in) return;
+  // the epilogue: f masked copies of each row's mean gradient
 #pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) {
-    const int r = r0 + i * lanes;
+  for (int i = 0; i < 8; ++i) {
+    const int r = rbase + 4 * i;
     const long long row = row0 + r;
-    if (r < bn && row < n) {
-      const float dmean = acc[i] / cnt_s[r];
-      const uint8_t* mp = ms + row * f;
+    if (row >= n) continue;
+    const float inv = 1.f / (float)cnt_s[r];
+    const uint32_t bits = bits_s[r];
+    const uint8_t* mp = ms + row * f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = col0 + cbase + 32 * h;
+      if (col >= d_in) continue;
+      const float4 dm = make_float4(acc[i][4 * h] * inv, acc[i][4 * h + 1] * inv,
+                                    acc[i][4 * h + 2] * inv, acc[i][4 * h + 3] * inv);
       float* out = dh + ((long long)s * n + row) * f * d_in + col;
-      for (int j = 0; j < f; ++j) out[(long long)j * d_in] = dmean * (mp[j] ? 1.f : 0.f);
+      for (int j = 0; j < f; ++j) {
+        const float m = (j < 32 ? (bits >> j) & 1u : mp[j]) ? 1.f : 0.f;
+        const float4 v = make_float4(dm.x * m, dm.y * m, dm.z * m, dm.w * m);
+        float* o = out + (long long)j * d_in;
+        if (vec_dh) {
+          *reinterpret_cast<float4*>(o) = v;
+        } else {
+          o[0] = v.x;
+          if (col + 1 < d_in) o[1] = v.y;
+          if (col + 2 < d_in) o[2] = v.z;
+          if (col + 3 < d_in) o[3] = v.w;
+        }
+      }
     }
   }
 }
@@ -129,26 +265,21 @@ __global__ void __launch_bounds__(kThreads) stacked_mean_linear_dh_kernel(
 extern "C" int stacked_mean_linear_dh(
     const float* g, const uint8_t* mask, const float* w, const int* slot_u,
     float* dh, long long rb, long long n, long long f, long long d_in,
-    long long d_out, int block_n, int block_out, int block_in, void* stream) {
-  if (block_n < 1 || block_out < 1 || block_in < 1 || block_in > kThreads ||
-      kThreads % block_in != 0 ||
-      (long long)block_n > (long long)kMaxRows * (kThreads / block_in) ||
-      rb < 1 || rb > 65535 || n < 1 || f < 1 || d_in < 1 || d_out < 0 ||
-      (d_in + block_in - 1) / block_in > 65535) {
+    long long d_out, void* stream) {
+  if (rb < 1 || rb > 65535 || n < 1 || f < 1 || d_in < 1 || d_out < 0 ||
+      d_in > 0x7fffffffLL || d_out > 0x7fffffffLL || f > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * ((size_t)block_n * block_out +
-                                       (size_t)block_in * (block_out + 1) + block_n);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stacked_mean_linear_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((unsigned)((n + block_n - 1) / block_n),
-            (unsigned)((d_in + block_in - 1) / block_in), (unsigned)rb);
+  const long long dk = ((d_out > 0 ? d_out : 1) + kKC - 1) / kKC * kKC;  // d_out in whole chunks
+  const int kw = (int)(dk <= kMaxKW ? dk : kMaxKW);
+  const size_t smem = sizeof(float) * ((size_t)kw * kBN + 2 * (size_t)kBM * kGP + 2 * kBM);
+  const long long gx = (n + kBM - 1) / kBM;
+  if (gx > 0x7fffffffLL || (d_in + kBN - 1) / kBN > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(stacked_mean_linear_dh_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)gx, (unsigned)((d_in + kBN - 1) / kBN), (unsigned)rb);
   stacked_mean_linear_dh_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      g, mask, w, slot_u, dh, n, (int)f, (int)d_in, (int)d_out, block_n,
-      block_out, block_in);
+      g, mask, w, slot_u, dh, n, (int)f, (int)d_in, (int)d_out, kw);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,14 @@ d]`` activations go in as the transposed views the model makes.  The last
 dimension of each operand must be contiguous; in bf16 (the tensor-core
 kernel) each operand must also be 16-byte aligned with its other strides
 in multiples of 8 elements, as every tensor the model makes is.
+
+The kernel has no backward, nor has the reference's (its LM training runs
+the XLA attention path, ``make_train_step(use_pallas=False)``).  So on CUDA
+the op raises :class:`RuntimeError` when grad mode is on and q, k or v
+requires grad, instead of returning a result with no ``grad_fn``; under
+``torch.inference_mode()`` or ``torch.no_grad()``, as every LM path of the
+port calls it, nothing changes.  The CPU path differentiates through
+:func:`attention_ref`.
 """
 
 from __future__ import annotations
@@ -129,6 +137,11 @@ def flash_attention(
         return attention_ref(q, k, v, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() / torch.inference_mode(), or use_kernel=False to "
+            "differentiate through the plain version")
     out = _kernel_bshd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
                        window, q_offset)
     return out.transpose(1, 2)

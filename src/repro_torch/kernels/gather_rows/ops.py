@@ -7,6 +7,15 @@ The production caller is ``repro_torch.embed.cache.FeatureCache.fetch``
 on all-hit fetches.  Indices come from the host (the cache keeps its slot
 map in numpy): they are range-checked there before they are copied to the
 device, since the kernel itself does not check them.
+
+On CUDA the launch sits inside an autograd ``Function`` (:class:`_GatherRows`)
+whose backward is the reference's VJP (``repro/kernels/gather_rows/ops.py``
+``_vjp_bwd``): the transpose scatter-add ``zeros(table.shape).index_put_(
+(idx,), g, accumulate=True)`` in torch ops.  The reference's backward is an
+XLA scatter, not a Pallas kernel, so torch ops are its counterpart here.
+CUDA's accumulating ``index_put_`` sorts the indices and sums each run of
+equal indices in their original order, so the gradient is the same bit for
+bit from call to call (a resumed run repeats the uninterrupted one).
 """
 
 from __future__ import annotations
@@ -68,9 +77,32 @@ def _kernel():
     return _FN
 
 
+class _GatherRows(torch.autograd.Function):
+    """The kernel's gather, differentiable in ``table`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, table, idx_dev):
+        ctx.save_for_backward(idx_dev)
+        ctx.shape = table.shape
+        out = torch.empty((idx_dev.shape[0], table.shape[1]), dtype=table.dtype,
+                          device=table.device)
+        if out.numel():
+            launch_kernel(table, idx_dev, out)
+            INFO.record((table.shape[0], table.shape[1], out.shape[0]))  # (rows, d, n)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx_dev,) = ctx.saved_tensors
+        dt = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return dt.index_put_((idx_dev.long(),), g, accumulate=True), None
+
+
 def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
     """``table[idx]`` — the CUDA kernel for a CUDA table, the plain version
-    for a CPU one.  ``idx`` is a host integer array (int32 or int64)."""
+    for a CPU one.  ``idx`` is a host integer array (int32 or int64).  Both
+    are differentiable in ``table``: the CPU through ``table[idx]``, CUDA
+    through :class:`_GatherRows`."""
     if table.dim() != 2:
         raise ValueError(f"gather_rows table must be 2-D, got {tuple(table.shape)}")
     arr = _host_index(idx, table.shape[0])
@@ -80,13 +112,7 @@ def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
         raise ValueError(f"gather_rows: unsupported device {table.device}")
     if table.dtype != torch.float32 or not table.is_contiguous():
         raise ValueError("gather_rows kernel takes a contiguous float32 table")
-    n, d = len(arr), table.shape[1]
-    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
-    if n == 0 or d == 0:
-        return out
-    launch_kernel(table, torch.from_numpy(arr).to(table.device), out)
-    INFO.record((table.shape[0], d, n))  # (rows, d, n): the table each fetch read
-    return out
+    return _GatherRows.apply(table, torch.from_numpy(arr).to(table.device))
 
 
 def launch_kernel(table: torch.Tensor, idx_dev: torch.Tensor, out: torch.Tensor) -> None:

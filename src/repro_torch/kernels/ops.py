@@ -46,9 +46,10 @@ __all__ = [
 # CUDA launch defaults per op: (block_n, block_out, block_in)
 DEFAULT_BLOCKS: Dict[str, Tuple[int, int, int]] = {
     "stacked_mean_linear": (16, 64, 64),
-    # block_out is the d_out chunk of the backward's inner loop; block_in
-    # must divide the kernel's 256 threads
-    "stacked_mean_linear_dh": (32, 64, 64),
+    # fixed in csrc/stacked_mean_linear_dh.cu, which takes no block sizes:
+    # rows of a block, the deepest weight slice kept resident, the d_in
+    # columns of a block
+    "stacked_mean_linear_dh": (128, 128, 64),
     # block_n is the budget of (row, neighbour) pairs per block: a block
     # holds max(1, block_n // f) destination rows; block_out is the fixed
     # 64-column pass of the projection; block_in the d_in chunk

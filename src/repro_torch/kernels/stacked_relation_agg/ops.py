@@ -145,7 +145,8 @@ _AE_FN = None
 _ADH_FN = None
 # must match csrc/stacked_mean_linear.cu; _THREADS also stacked_softmax_combine.cu
 _THREADS, _MAX_ACC = 256, 16
-_DH_MAX_ROWS = 16  # must match csrc/stacked_mean_linear_dh.cu (kMaxRows)
+# must match csrc/stacked_mean_linear_dh.cu: the d_in columns of a block
+_DH_COLS = DEFAULT_BLOCKS["stacked_mean_linear_dh"][2]
 # must match csrc/stacked_attn_epilogue.cu and csrc/stacked_attn_dh.cu:
 # the fixed 64 x 64 tiles, the largest d_in / H chunk, and the opt-in
 # shared memory of one block on sm_90
@@ -276,8 +277,7 @@ def _dh_kernel():
         from repro_torch.kernels.build import load
 
         fn = load("stacked_mean_linear_dh").stacked_mean_linear_dh
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _DH_FN = fn
     return _DH_FN
@@ -340,7 +340,7 @@ def launch_kernel(h, mask_u8, w, b, slot_u_dev, out, block_n, block_out, block_i
     check_launch(status, "stacked_mean_linear")
 
 
-def launch_dh_kernel(g, mask_u8, w, slot_u_dev, dh, block_n, block_out, block_in) -> None:
+def launch_dh_kernel(g, mask_u8, w, slot_u_dev, dh) -> None:
     """One raw ``dh`` launch on operands already checked and staged on
     ``g``'s device (``dh`` allocated as ``[rb, n, f, d_in]``).  Not counted,
     like :func:`launch_kernel`."""
@@ -348,8 +348,7 @@ def launch_dh_kernel(g, mask_u8, w, slot_u_dev, dh, block_n, block_out, block_in
     with torch.cuda.device(g.device):
         status = _dh_kernel()(g.data_ptr(), mask_u8.data_ptr(), w.data_ptr(),
                               slot_u_dev.data_ptr(), dh.data_ptr(), rb, n, f, d_in,
-                              g.shape[2], block_n, block_out, block_in,
-                              cuda_stream(g.device))
+                              g.shape[2], cuda_stream(g.device))
     check_launch(status, "stacked_mean_linear_dh")
 
 
@@ -363,9 +362,6 @@ def stacked_mean_linear_dh(
     mask: torch.Tensor,  # [rb, n, f] bool or uint8
     w: torch.Tensor,  # [U, d_in, d_out] float32
     slot_u,  # [rb] host integer array in [0, U), or stage_slot_u's tensor
-    block_n: Optional[int] = None,
-    block_out: Optional[int] = None,
-    block_in: Optional[int] = None,
 ) -> torch.Tensor:
     """``dh[s, i, j] = (g[s, i] @ w[slot_u[s]]^T) / max(cnt[s, i], 1) *
     mask[s, i, j]`` -> ``[rb, n, f, d_in]``.
@@ -388,20 +384,13 @@ def stacked_mean_linear_dh(
         raise ValueError(f"stacked_mean_linear_dh: unsupported device {g.device}")
     mask_u8 = _cuda_operands("stacked_mean_linear_dh", g.device,
                              (("g", g), ("mask", mask), ("w", w)), ("g", "w"), mask)
-    dn, do, di = resolve_blocks(None, "stacked_mean_linear_dh")
-    bn, bo, bc = block_n or dn, block_out or do, block_in or di
-    if bc > _THREADS or _THREADS % bc:
-        raise ValueError(f"stacked_mean_linear_dh: block_in={bc} must divide {_THREADS}")
-    if bn > _DH_MAX_ROWS * (_THREADS // bc):
-        raise ValueError(f"stacked_mean_linear_dh: block_n={bn} exceeds "
-                         f"{_DH_MAX_ROWS * (_THREADS // bc)} rows at block_in={bc}")
-    if rb > 65535 or -(-d_in // bc) > 65535:
+    if rb > 65535 or -(-d_in // _DH_COLS) > 65535:
         raise ValueError(f"stacked_mean_linear_dh: grid of {rb} slots x "
-                         f"{-(-d_in // bc)} column tiles exceeds 65535")
+                         f"{-(-d_in // _DH_COLS)} column tiles exceeds 65535")
     dh = torch.empty((rb, n, f, d_in), dtype=torch.float32, device=g.device)
     if rb == 0 or n == 0 or f == 0 or d_in == 0:
         return dh
-    launch_dh_kernel(g, mask_u8, w, slots, dh, bn, bo, bc)
+    launch_dh_kernel(g, mask_u8, w, slots, dh)
     INFO_DH.record((rb, n, f, d_in, d_out, U))
     return dh
 

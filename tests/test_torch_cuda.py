@@ -9,7 +9,8 @@ it runs on the GPU host as it is:
 Tolerance: fp32, atol 1e-5 / rtol 1e-5 for the aggregations and their
 backwards (the kernels sum the fanout and the contraction in their own
 order; the attention epilogue also applies HGT's per-head transforms once
-per row instead of once per neighbour); the gather is exact.  Flash
+per row instead of once per neighbour); the gather is exact, and its
+gradient (a scatter-add over duplicate indices) within 1e-5 of the CPU's.  Flash
 attention (kernel 8): the reference's tolerances, fp32 2e-5 and bf16 3e-2
 (the kernel keeps fp32 logits, the plain version rounds them to bf16); the
 reduced LM on the card within 1e-4 of the CPU.
@@ -178,22 +179,71 @@ def test_cuda_dh_refuses_what_it_does_not_take(cuda_device):
         stacked_mean_linear_dh(g.double(), mask, w, np.array([0, 1]))
     with pytest.raises(ValueError):
         stacked_mean_linear_dh(g, mask, w.cpu(), np.array([0, 1]))
-    with pytest.raises(ValueError, match="divide"):
-        stacked_mean_linear_dh(g, mask, w, np.array([0, 1]), block_in=48)
-    with pytest.raises(ValueError):
-        stacked_mean_linear_dh(g, mask, w, np.array([0, 1]), block_n=4096, block_in=256)
+    with pytest.raises(ValueError, match="uint8"):
+        stacked_mean_linear_dh(g, mask.float(), w, np.array([0, 1]))
+    with pytest.raises(ValueError, match="shapes"):
+        stacked_mean_linear_dh(g, mask[:, :2], w, np.array([0, 1]))
+    with pytest.raises(ValueError, match="does not match"):
+        stacked_mean_linear_dh(g, mask, w[..., :5], np.array([0, 1]))
+    with pytest.raises(ValueError, match="int32"):
+        stacked_mean_linear_dh(g, mask, w, torch.tensor([0, 1], device=cuda_device))
+    with pytest.raises(TypeError):  # the kernel's tile is fixed: no block sizes
+        stacked_mean_linear_dh(g, mask, w, np.array([0, 1]), block_in=128)
     with pytest.raises(IndexError):
         stacked_mean_linear_dh(g, mask, w, np.array([0, 2]))
 
 
+# kernel 2's ragged cases: n x d_in, each over d_out in {1, 65, 100} and
+# f in {1, 3, 16}; five slots on two stack rows (shared rows), every 7th row
+# fully masked
+DH_RAGGED_N = (1, 1000, 4097)
+DH_RAGGED_DIN = (33, 100, 128, 789)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", DH_RAGGED_N)
+@pytest.mark.parametrize("di", DH_RAGGED_DIN)
+def test_cuda_dh_ragged_matches_plain(cuda_device, n, di):
+    for do in (1, 65, 100):
+        for f in (1, 3, 16):
+            r = np.random.default_rng(n * di + do * f)
+            g = torch.from_numpy(r.standard_normal((5, n, do)).astype(np.float32)).to(cuda_device)
+            mask = r.random((5, n, f)) > 0.3
+            mask[:, ::7, :] = False
+            mask = torch.from_numpy(mask).to(cuda_device)
+            w = torch.from_numpy((r.standard_normal((2, di, do)) * 0.1).astype(np.float32)).to(
+                cuda_device)
+            slot_u = np.array([0, 1, 1, 0, 1])
+            want = stacked_mean_linear_dh_ref(g, mask, w, slot_u)
+            got = stacked_mean_linear_dh(g, mask, w, slot_u)
+            staged = stacked_mean_linear_dh(g, mask, w, stage_slot_u(slot_u, 2, cuda_device))
+            torch.cuda.synchronize()
+            assert torch.equal(got, staged), (n, di, do, f)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL,
+                                       err_msg=str((n, di, do, f)))
+
+
+@pytest.mark.cuda
+def test_cuda_dh_is_the_same_bit_for_bit(cuda_device):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    _, mask, w, _, slot_u = _mean_linear_case(6, 4096, 3, 128, 64, 6, seed=3)
+    g = np.random.default_rng(4).standard_normal((6, 4096, 64)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (g, mask, w)]
+    assert torch.equal(stacked_mean_linear_dh(*args, slot_u), stacked_mean_linear_dh(*args, slot_u))
+
+
 @pytest.mark.cuda
 def test_cuda_block_override_reaches_only_the_forward(cuda_device):
-    """kernels.block_* overrides that the forward kernel takes but the dh
-    kernel would refuse (block_n 64 at block_in 128) train as the defaults do:
-    the backward launches the dh kernel at its own default blocks."""
+    """kernels.block_* overrides size the forward kernel only: the dh
+    kernel's tile is fixed (it takes no block sizes), and the backward
+    trains as it does at the defaults."""
     rb, n, f, di, do, U = 6, 200, 3, 128, 64, 6
     h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=11)
     g = np.random.default_rng(12).standard_normal((rb, n, do)).astype(np.float32)
+    with pytest.raises(TypeError):
+        stacked_mean_linear_dh(torch.from_numpy(g).to(cuda_device),
+                               torch.from_numpy(mask).to(cuda_device),
+                               torch.from_numpy(w).to(cuda_device), slot_u, block_n=64)
     grads = []
     for opts in (None, KernelConfig(block_n=64, block_in=128)):
         th, tw, tb = (torch.from_numpy(a).to(cuda_device).requires_grad_(True)
@@ -588,6 +638,93 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
         flash_attention(odd, odd, odd)
     odd32 = torch.ones(1, 2, 8, 65, device=cuda_device)[..., 1:]  # fp32 takes any stride
     torch.testing.assert_close(flash_attention(odd32, odd32, odd32), odd32)
+
+
+# kernel 8's ragged cases: every (sq, sk) in {1, 129, 1000, 2047}^2 at every
+# head dim, each with one of six settings in turn: GQA 24:8 or 4:1,
+# causal or not, a window, a q_offset, and rows that see no key
+FLASH_RAGGED_S = (1, 129, 1000, 2047)
+FLASH_SETTINGS = [  # (h, hk, causal, window, q_offset)
+    (24, 8, True, None, 0), (4, 1, False, None, 0), (24, 8, True, 100, 0),
+    (4, 1, True, None, 37), (4, 1, False, 64, 0), (4, 1, False, 4, 3000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("sq", FLASH_RAGGED_S)
+@pytest.mark.parametrize("sk", FLASH_RAGGED_S)
+def test_cuda_flash_attention_ragged_matches_plain(cuda_device, d, sq, sk):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+
+    assert d in HEAD_DIMS
+    i = FLASH_RAGGED_S.index(sq) * 4 + FLASH_RAGGED_S.index(sk) + d
+    h, hk, causal, window, off = FLASH_SETTINGS[i % len(FLASH_SETTINGS)]
+    case = (1 + i % 2, h, hk, sq, sk, d)
+    q, k, v = _flash_inputs(case, torch.bfloat16, cuda_device, i)
+    got = flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    plain = attention_ref(q, k, v, causal, window, off)
+    exact = attention_ref(q.float(), k.float(), v.float(), causal, window, off)
+    for want in (plain, exact):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **FLASH_TOL[torch.bfloat16],
+                                   err_msg=str((case, causal, window, off)))
+    # |out| is about sqrt(e / keys), near the 3e-2 above at long rows: the
+    # kernel's Frobenius error against fp32 attention stays within 1.5x the
+    # plain bf16 path's own
+    k_err = float((got.float() - exact).norm())
+    p_err = float((plain.float() - exact).norm())
+    assert k_err <= 1.5 * p_err + 1e-6 * float(exact.norm()), (case, k_err, p_err)
+    if off == 3000:  # no query sees a key: the kernel gives 0, as the oracle does (R3)
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_raises_under_grad(cuda_device):
+    """The kernel has no backward: under grad with an operand that requires
+    grad the op raises instead of returning a result with no grad_fn; under
+    inference_mode or no_grad it runs."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _flash_inputs((1, 4, 2, 130, 130, 64), torch.bfloat16, cuda_device, 0)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q.detach(), k.detach().requires_grad_(True), v)
+    with torch.no_grad():
+        a = flash_attention(q, k, v)
+    with torch.inference_mode():
+        b = flash_attention(q, k, v)
+    assert torch.equal(a, b) and a.grad_fn is None
+    c = flash_attention(q.detach(), k, v)  # nothing requires grad
+    assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+def test_cuda_gather_rows_gradient_matches_cpu(cuda_device, idx_dtype):
+    """The CUDA gather's gradient (a scatter-add over duplicate indices)
+    equals the CPU's, and is the same bit for bit over two calls."""
+    r = np.random.default_rng(7)
+    table = r.standard_normal((300, 64)).astype(np.float32)
+    idx = r.integers(0, 300, 5000).astype(idx_dtype)
+    g = r.standard_normal((5000, 64)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda_device, cuda_device):
+        t = torch.from_numpy(table).to(dev).requires_grad_(True)
+        out = gather_rows(t, idx)
+        assert out.grad_fn is not None
+        (dt,) = torch.autograd.grad(out, t, torch.from_numpy(g).to(dev))
+        grads.append(dt.cpu())
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(), atol=1e-5, rtol=1e-5)
+    assert torch.equal(grads[1], grads[2])
+    with torch.no_grad():  # the cache's all-hit fetch: no graph, same rows
+        t = torch.from_numpy(table).to(cuda_device)
+        np.testing.assert_array_equal(gather_rows(t, idx).cpu().numpy(), table[idx])
 
 
 @pytest.mark.cuda

@@ -102,9 +102,8 @@ def test_stacked_agg_oracle_path_matches_kernel_path(rb, n, f, di, do, U):
 
 def test_block_override_leaves_the_dh_kernel_at_its_defaults(monkeypatch):
     """kernels.block_* size the forward kernel only: the backward asks for
-    dh with no block sizes, so the dh kernel launches at DEFAULT_BLOCKS
-    (its limits differ: block_n 64 at block_in 128 is a valid forward and
-    an invalid dh launch).  Gradients match the run without the override."""
+    dh with no block sizes (the dh kernel's tile is fixed).  Gradients
+    match the run without the override."""
     from repro_torch.kernels.stacked_relation_agg import ops as sml
 
     calls = []
@@ -143,6 +142,38 @@ def test_gather_rows_matches_reference(rows, d, n, idx_dtype):
         np.testing.assert_array_equal(got, pallas)
     off = gather_rows_cfg(torch.from_numpy(table), idx, KernelConfig(gather=False))
     np.testing.assert_array_equal(off.numpy(), ref)
+
+
+@pytest.mark.parametrize("rows,d,n,idx_dtype", [
+    (9, 37, 40, np.int64), (9, 37, 40, np.int32), (3, 1, 12, np.int32), (50, 64, 30, np.int64)])
+def test_gather_rows_gradient_matches_reference_vjp(rows, d, n, idx_dtype):
+    """The gather's gradient into the table, with duplicate indices, equals
+    the reference's: its custom_vjp backward (the scatter-add ``_vjp_bwd``)
+    applied to the cotangent, after its forward (the Pallas kernel in
+    interpret mode), and jax.grad through its plain path.  Under this jax,
+    jax.grad through the custom_vjp itself raises: its forward keeps
+    ``table.dtype`` among the residuals, which is not a JAX type (ROADMAP.md
+    §C, R5), so the test calls the backward rule directly.  Tolerance 1e-6:
+    each row of the gradient sums the same few values, possibly in another
+    order."""
+    from repro.kernels.gather_rows import ops as jax_gather_ops
+
+    r = np.random.default_rng(rows + d + n)
+    table = r.standard_normal((rows, d)).astype(np.float32)
+    idx = r.integers(0, rows, n).astype(idx_dtype)
+    assert len(np.unique(idx)) < n  # duplicates: the scatter-add must sum them
+    g = r.standard_normal((n, d)).astype(np.float32)
+    jt, ji, jg = jnp.asarray(table), jnp.asarray(idx), jnp.asarray(g)
+    out, res = jax_gather_ops._vjp_fwd(True, jt, ji)
+    want = np.asarray(jax_gather_ops._vjp_bwd(True, res, jg)[0])
+    plain = np.asarray(jax.grad(lambda t: jnp.sum(
+        jax_gather_ops.gather_rows(t, ji, use_pallas=False) * jg))(jt))
+    np.testing.assert_array_equal(want, plain)
+    tt = torch.from_numpy(table).requires_grad_(True)
+    got = gather_rows(tt, idx)
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(out))
+    (dt,) = torch.autograd.grad(got, tt, torch.from_numpy(g))
+    np.testing.assert_allclose(dt.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
 def test_gather_rows_rejects_bad_indices():

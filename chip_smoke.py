@@ -11,9 +11,11 @@ non-zero exit and no result line):
 
   1. environment — torch/CUDA versions, the card's name and power limit;
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
-     process per source, all at once; the ptxas registers and spills of the
-     kernels redesigned for Hopper (flash_attention's wgmma kernel and
-     stacked_mean_linear_dh's), and ``cuobjdump -sass`` of the flash attention
+     process per source, all at once; the ptxas registers and spills of every
+     instantiation of the kernels redesigned for Hopper (flash_attention's
+     wgmma kernel; stacked_mean_linear, stacked_mean_linear_dh and
+     stacked_attn_dh on the fp32 register-tiled core ``csrc/fp32_tile.cuh``),
+     none of which may spill, and ``cuobjdump -sass`` of the flash attention
      library, which must hold HGMMA and UTMALDG instructions;
   3. kernels vs plain — each kernel's wrapper on the card at ragged shapes
      and the training path's shapes against its plain PyTorch version
@@ -27,9 +29,12 @@ non-zero exit and no result line):
      at the reference's AGG_SHAPES, the raf path's shapes and an all-masked
      case; stacked_softmax_combine (the unfused attention epilogue) at the
      reference's cases, f in {16, 64, 100}, ragged n and H beyond 256;
-     stacked_mean_linear_dh also at 108 ragged shapes (n in {1, 1000, 4097},
-     d_in in {33, 100, 128, 789}, d_out in {1, 65, 100}, f in {1, 3, 16},
-     shared stack rows, fully masked rows);
+     stacked_mean_linear and stacked_mean_linear_dh also at 108 ragged shapes
+     each (n in {1, 1000, 4097}, d_in in {33, 100, 128, 789}, d_out in {1,
+     65, 100}, f in {1, 3, 16}, five slots on two stack rows, every 7th row
+     fully masked); stacked_attn_dh also at 96 (n * f in {1, 3000, 12291},
+     d_in in {33, 100, 128, 789}, H in {15, 64, 72, 130}, with and without
+     dv, slots sharing stack rows);
   4. training — a port ``Heta`` session on the GPU at each model's full
      width (hidden 64, 4 heads, learnable_dim 64, 2 layers, fanouts 4,3,
      learnable tables through the default 4 MiB cache) on ogbn-mag capped
@@ -72,9 +77,9 @@ non-zero exit and no result line):
      each path, the error against the plain version, kernel time (CUDA
      events over raw launches, inputs rotated through more than the 50 MB
      L2), the plain version's time, the library call's time where one
-     PyTorch call computes the same function (kernels 2 and 8 also as one
-     CUDA graph of the same calls, which leaves out the host's launch cost:
-     ``graph_ms``, ``plain_graph_ms``, ``library_graph_ms``), and the least
+     PyTorch call computes the same function (kernels 1, 2, 5 and 8 also as
+     one CUDA graph of the same calls, which leaves out the host's launch
+     cost: ``graph_ms``, ``plain_graph_ms``, ``library_graph_ms``), and the least
      time the card could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32
      without tensor cores); relation_agg and stacked_softmax_combine at every shape their
      paths launched; at f = 1 the library call of stacked_mean_linear
@@ -162,7 +167,9 @@ def card_line() -> str:
 
 
 # the kernels redesigned for Hopper, by the kernel op whose library holds them
-REDESIGNED = {"stacked_mean_linear_dh": "stacked_mean_linear_dh_kernel",
+REDESIGNED = {"stacked_mean_linear": "stacked_mean_linear_kernel",
+              "stacked_mean_linear_dh": "stacked_mean_linear_dh_kernel",
+              "stacked_attn_dh": "stacked_attn_dh_kernel",
               "flash_attention": "flash_attention_wgmma_kernel"}
 
 
@@ -274,26 +281,38 @@ def bound(nbytes: float, flops: float):
 # --------------------------------------------------------------------------
 
 
-def mean_linear_inputs(shape, seed, device):
+def mean_linear_inputs(shape, seed, device, masked_rows=False):
+    """h, mask, w, b, slot_u of a mean-linear shape; ``masked_rows`` also
+    masks every 7th row fully, puts the slots on the stack rows in turn
+    (rb > U: rows shared) and draws h on the device from the seed (the
+    ragged sweep's h reaches 1 GB)."""
     import numpy as np
     import torch
 
     rb, n, f, di, do, U = shape
     r = np.random.default_rng(seed)
-    h = torch.from_numpy(r.standard_normal((rb, n, f, di)).astype(np.float32)).to(device)
-    mask = torch.from_numpy(r.random((rb, n, f)) > 0.3).to(device)
+    if masked_rows:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        h = torch.randn((rb, n, f, di), generator=gen, device=device)
+    else:
+        h = torch.from_numpy(r.standard_normal((rb, n, f, di)).astype(np.float32)).to(device)
+    mask = r.random((rb, n, f)) > 0.3
+    slot_u = r.integers(0, U, rb)
+    if masked_rows:
+        mask[:, ::7, :] = False
+        slot_u = np.arange(rb) % U
+    mask = torch.from_numpy(mask).to(device)
     w = torch.from_numpy((r.standard_normal((U, di, do)) * 0.1).astype(np.float32)).to(device)
     b = torch.from_numpy((r.standard_normal((U, do)) * 0.1).astype(np.float32)).to(device)
-    slot_u = r.integers(0, U, rb)
     return h, mask, w, b, slot_u
 
 
-def check_mean_linear(shape, seed, device) -> float:
+def check_mean_linear(shape, seed, device, masked_rows=False) -> float:
     from repro_torch.kernels.stacked_relation_agg import (
         stacked_mean_linear, stacked_mean_linear_ref, stage_slot_u)
     import torch
 
-    h, mask, w, b, slot_u = mean_linear_inputs(shape, seed, device)
+    h, mask, w, b, slot_u = mean_linear_inputs(shape, seed, device, masked_rows)
     got = stacked_mean_linear(h, mask, w, b, slot_u)
     staged = stacked_mean_linear(h, mask, w, b, stage_slot_u(slot_u, w.shape[0], device))
     ref = stacked_mean_linear_ref(h, mask, w, b, slot_u)
@@ -329,35 +348,33 @@ def time_mean_linear(shape, device):
     import numpy as np
     import torch
 
-    from repro_torch.kernels.ops import resolve_blocks
     from repro_torch.kernels.stacked_relation_agg import ops as sml
 
     rb, n, f, di, do, U = shape
     h_bytes = rb * n * f * di * 4
     sets = [mean_linear_inputs(shape, 100 + i, device)
             for i in range(copies_to_exceed_l2(h_bytes))]
-    bn, bo, bc = resolve_blocks(None, "stacked_mean_linear")
-    raw = []
+    raw, plain = [], []
     for h, mask, w, b, slot_u in sets:
         out = torch.empty((rb, n, do), dtype=torch.float32, device=device)
         u_dev = torch.from_numpy(np.asarray(slot_u, np.int32)).to(device)
-        raw.append((h, mask.view(torch.uint8), w, b, u_dev, out, bn, bo, bc))
+        raw.append((h, mask.view(torch.uint8), w, b, u_dev, out))
+        plain.append((h, mask, w, b, u_dev))
+    # at f = 1 (the attention models' q side) the function is one
+    # torch.baddbmm after the slot gather, which stays outside the call
+    lib = [(b[u.long()][:, None, :].contiguous(), h[:, :, 0, :].contiguous(), w[u.long()])
+           for h, _, w, b, u in plain] if f == 1 else None
     ms = time_ms(sml.launch_kernel, raw)
-    plain_ms = time_ms(sml.stacked_mean_linear_ref, sets)
-    library_ms = None
-    if f == 1:
-        # at f = 1 (the attention models' q side) the function is one
-        # torch.baddbmm after the slot gather, which stays outside the call
-        lib = []
-        for h, mask, w, b, slot_u in sets:
-            u = torch.from_numpy(np.asarray(slot_u, np.int64)).to(device)
-            lib.append((b[u][:, None, :].contiguous(), h[:, :, 0, :].contiguous(), w[u]))
-        library_ms = time_ms(torch.baddbmm, lib)
+    plain_ms = time_ms(sml.stacked_mean_linear_ref, plain)
+    library_ms = time_ms(torch.baddbmm, lib) if lib else None
+    graph = dict(graph_ms=time_ms(sml.launch_kernel, raw, graph=True),
+                 plain_graph_ms=time_ms(sml.stacked_mean_linear_ref, plain, graph=True),
+                 library_graph_ms=time_ms(torch.baddbmm, lib, graph=True) if lib else None)
     nbytes = h_bytes + rb * n * f + U * di * do * 4 + U * do * 4 + rb * 4 + rb * n * do * 4
     flops = 2 * rb * n * f * di + 2 * rb * n * di * do + rb * n * do
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, bytes=nbytes, flops=flops)
+                library_ms=library_ms, bytes=nbytes, flops=flops, **graph)
 
 
 def time_gather(shape, device):
@@ -545,7 +562,8 @@ def check_attn(shape, seed, device) -> float:
 
 def attn_dh_inputs(shape, seed, device):
     """(dz, dv, we, wv, us) of a recorded stacked_attn_dh shape (rb, n, f,
-    d_in, H, Ue, Uv); Uv = 0 is the shared (one-product) form."""
+    d_in, H, Ue, Uv); Uv = 0 is the shared (one-product) form.  Slots 0 and
+    1 share stack row 0."""
     import numpy as np
     import torch
 
@@ -641,11 +659,10 @@ def time_attn_dh(shape, device):
     rb, n, f, di, H, Ue, Uv = shape
     sets = [attn_dh_inputs(shape, 500 + i, device)
             for i in range(copies_to_exceed_l2(rb * n * f * di * 4))]
-    bc = sra.DEFAULT_BLOCKS["stacked_attn_dh"][2]
     raw, lib = [], []
     for dz, dv, we, wv, us in sets:
         raw.append((dz, dv, we, wv, us, torch.empty((rb, n, f, di), dtype=torch.float32,
-                                                     device=device), bc))
+                                                     device=device)))
         u = us.long()
         wt = we[u[0]].transpose(1, 2)
         a = dz.reshape(rb, n * f, H)
@@ -656,12 +673,15 @@ def time_attn_dh(shape, device):
     ms = time_ms(sra.launch_attn_dh, raw)
     plain_ms = time_ms(sra.stacked_attn_dh_ref, sets)
     library_ms = time_ms(torch.bmm, lib)
+    graph = dict(graph_ms=time_ms(sra.launch_attn_dh, raw, graph=True),
+                 plain_graph_ms=time_ms(sra.stacked_attn_dh_ref, sets, graph=True),
+                 library_graph_ms=time_ms(torch.bmm, lib, graph=True))
     k = 2 if Uv else 1
     nbytes = 4 * (k * rb * n * f * H + (Ue + Uv) * di * H + rb * n * f * di) + 3 * rb * 4
     flops = 2 * k * rb * n * f * di * H
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, bytes=nbytes, flops=flops)
+                library_ms=library_ms, bytes=nbytes, flops=flops, **graph)
 
 
 # --------------------------------------------------------------------------
@@ -1712,6 +1732,14 @@ ATTN_RAGGED = [(5, 19, 4, 23, 4, 8, 3), (4, 33, 1, 789, 4, 16, 3), (3, 130, 3, 1
 # slots on two stack rows, every 7th row fully masked
 DH_RAGGED = [(5, n, f, di, do, 2) for n in (1, 1000, 4097) for di in (33, 100, 128, 789)
              for do in (1, 65, 100) for f in (1, 3, 16)]
+# kernel 1's ragged shapes: the same sweep (every 7th row fully masked, five
+# slots on two stack rows)
+ML_RAGGED = DH_RAGGED
+# kernel 5's (rb, n, f, d_in, H, Ue, Uv): n * f in {1, 3000, 12291}, d_in in
+# {33, 100, 128, 789}, H in {15, 64, 72, 130}, with (Uv = 3) and without
+# (Uv = 0) dv; five slots on two or three stack rows, slots 0 and 1 on row 0
+ADH_RAGGED = [(5, n, f, di, H, 2, uv) for n, f in ((1, 1), (1000, 3), (4097, 3))
+              for di in (33, 100, 128, 789) for H in (15, 64, 72, 130) for uv in (0, 3)]
 # kernel 8's ragged cases (b, h, hk, sq, sk, d, causal, window, q_offset):
 # every (sq, sk) in {1, 129, 1000, 2047}^2 at every head dim, each with one of
 # six settings in turn (GQA 24:8 or 4:1, causal or not, a window, a q_offset,
@@ -1792,6 +1820,9 @@ def main(argv=None) -> int:
     log_redesigned(report["redesigned"])
     check(all(report["redesigned"][name] for name in REDESIGNED),
           "a redesigned kernel is missing from its ptxas report")
+    check(not any(e["spill_stores"] or e["spill_loads"]
+                  for name in REDESIGNED for e in report["redesigned"][name]),
+          "a redesigned kernel spills registers")
     check(all(report["redesigned"]["flash_attention_sass"].values()),
           "the flash attention library holds no HGMMA or no UTMALDG: the Hopper kernel "
           "was not built")
@@ -1808,6 +1839,12 @@ def main(argv=None) -> int:
     for i, shape in enumerate(DH_RAGGED):
         errs["stacked_mean_linear_dh"] = max(errs["stacked_mean_linear_dh"],
                                              check_dh(shape, 500 + i, DEVICE, masked_rows=True))
+    for i, shape in enumerate(ML_RAGGED):
+        errs["stacked_mean_linear"] = max(errs["stacked_mean_linear"],
+                                          check_mean_linear(shape, 700 + i, DEVICE,
+                                                            masked_rows=True))
+    for i, shape in enumerate(ADH_RAGGED):
+        errs["stacked_attn_dh"] = max(errs["stacked_attn_dh"], check_attn_dh(shape, 900 + i, DEVICE))
     for i, (shape, dt) in enumerate([((50, 37, 9), "int32"), ((5, 1, 3), "int64"),
                                      ((1000, 64, 256), "int64")]):
         check_gather(shape, i, DEVICE, dt)

@@ -17,7 +17,8 @@ section dataclasses mirroring the pipeline stages:
   * :class:`PipelineConfig`  — async host pipeline (prefetch depth, snapshot
     staleness policy; see the ``repro.data`` package docstring)
   * :class:`KernelConfig`    — hand-written CUDA kernel layer (per-op
-    toggles, launch block sizes; see ``repro_torch.kernels``)
+    toggles; the reference's block-size fields, which no launch reads; see
+    ``repro_torch.kernels``)
   * :class:`ServeConfig`     — online inference tier (layer-wise inference
     node block, micro-batch flush policy, serve cache budget, degradation
     policy — deadlines, flush retries, circuit breaker; see ``repro.serve``
@@ -276,13 +277,13 @@ class KernelConfig:
     ``attn_parts`` factoring runs the projections in torch ops and the
     masked softmax + combine through ``stacked_softmax_combine``.
     ``relation_agg`` routes the dict-form ``raf`` executor's R-GCN
-    aggregation through its kernel.  The explicit
-    ``block_n`` / ``block_out`` / ``block_in`` overrides are launch
-    parameters of the ``stacked_mean_linear`` forward (R-GCN's aggregation,
-    the attention models' query side) beating its CUDA defaults
-    (``repro_torch.kernels.ops.resolve_blocks``); the other kernels launch at
-    their defaults.  There is no CUDA tuning table yet, so
-    ``autotune=True`` raises.
+    aggregation through its kernel.  ``block_n`` / ``block_out`` /
+    ``block_in`` are the reference's fields, validated and kept so that
+    configurations round-trip between the packages, but no CUDA launch
+    reads them: every kernel of the port has a fixed tile (kernels 1 and 5
+    pick their rows per block from the shape).  There is no tuning table,
+    so ``autotune=True`` raises
+    (``repro_torch.kernels.ops.refuse_autotune``).
     """
 
     enabled: bool = True
@@ -291,10 +292,10 @@ class KernelConfig:
     gather: bool = True
     interpret: Optional[bool] = None  # None = auto per backend
     fuse_epilogue: bool = True
-    autotune: bool = False  # consult the committed block-size tuning table
-    block_n: Optional[int] = None  # explicit node-block override
-    block_out: Optional[int] = None  # explicit d_out-block override
-    block_in: Optional[int] = None  # explicit d_in-chunk override
+    autotune: bool = False  # the reference's tuning table; True raises here
+    block_n: Optional[int] = None  # the reference's node block; no launch reads it
+    block_out: Optional[int] = None  # the reference's d_out block; no launch reads it
+    block_in: Optional[int] = None  # the reference's d_in chunk; no launch reads it
 
     def __post_init__(self):
         for f in ("enabled", "stacked_agg", "relation_agg", "gather",
@@ -737,13 +738,14 @@ _CLI_OVERRIDES: Dict[Tuple[str, str], Tuple[str, Optional[Callable], str]] = {
         "--kernel-fuse-epilogue", None,
         "fully fused attention epilogue (stack-streamed projections)"),
     ("kernels", "autotune"): (
-        "--kernel-autotune", None, "consult the committed block-size tuning table"),
+        "--kernel-autotune", None,
+        "the reference's block-size tuning table (the port has none: raises)"),
     ("kernels", "block_n"): (
-        "--kernel-block-n", int, "explicit node-block size override"),
+        "--kernel-block-n", int, "the reference's node-block size (no CUDA launch reads it)"),
     ("kernels", "block_out"): (
-        "--kernel-block-out", int, "explicit d_out-block size override"),
+        "--kernel-block-out", int, "the reference's d_out-block size (no CUDA launch reads it)"),
     ("kernels", "block_in"): (
-        "--kernel-block-in", int, "explicit d_in-chunk size override"),
+        "--kernel-block-in", int, "the reference's d_in-chunk size (no CUDA launch reads it)"),
     ("serve", "node_block"): (
         "--serve-node-block", int, "layer-wise inference node-block size"),
     ("serve", "max_batch"): (

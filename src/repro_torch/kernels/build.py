@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` file is a self-contained translation unit with a plain
 C interface (no PyTorch headers), compiled for Hopper (``sm_90a``) into
 ``build/repro_torch/lib<name>-<hash>.so`` at the repository root on first
-use.  The hash covers the source text and the compiler flags, so an edited
-source never loads a stale library.  ``build()`` starts one ``nvcc`` per
+use.  The hash covers the source text, every header of ``csrc/`` (the
+sources include ``fp32_tile.cuh``) and the compiler flags, so an edited
+source or header never loads a stale library.  ``build()`` starts one ``nvcc`` per
 source, all at once, and waits for them; ``load(name)`` builds what is
 missing and returns the loaded library.  The ``ptxas`` report of each
 build (registers, shared memory, spills) is kept beside the library as
@@ -64,6 +65,9 @@ def library_path(name: str) -> Path:
     if not src.is_file():
         raise KernelBuildError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -20,13 +20,13 @@
 // which a kernel that issues a shared-memory load per FMA cannot do.
 //
 // Design: an fp32 GEMM on the CUDA cores, dmean = g @ w[u]^T per slot
-// (M = rows, N = d_in, K = d_out), with a broadcast epilogue.
+// (M = rows, N = d_in, K = d_out), with a broadcast epilogue; the product
+// is the "nt" core of fp32_tile.cuh (shared with stacked_attn_dh.cu).
 //   * one block per (tile of BM = 128 rows, tile of BN = 64 d_in columns,
 //     slot); 128 threads in 4 warps, each warp over 32 rows x 64 columns,
 //     each thread owning an 8 x 8 register micro-tile (rows ly + 4 i,
 //     columns 4 lx + j and 32 + 4 lx + j for lane (ly, lx) = (lane / 8,
-//     lane % 8)); up to 3 blocks share an SM (163 registers a thread, no
-//     spills);
+//     lane % 8)); up to 3 blocks share an SM (no spills);
 //   * the block reads slot_u[s] itself and stages that slot's weight slice
 //     [BN][d_out] (as it lies in memory, 16-byte chunks XOR-swizzled by row)
 //     in shared memory once, when d_out <= 128 (every path: d_out = 64); a
@@ -59,116 +59,44 @@
 // stays on the CUDA cores.  No atomics: every sum runs over d_out in
 // increasing order, so the result is the same bit for bit from run to run.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fp32_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBM = 128;       // rows of a block: 4 warps of 32
-constexpr int kBN = 64;        // d_in columns of a block
-constexpr int kKC = 32;        // depth of one streamed g chunk
-constexpr int kGP = kKC + 4;   // row pitch of a g chunk (16-byte aligned rows)
-constexpr int kMaxKW = 128;    // deepest weight slice a block keeps resident
+using namespace fp32_tile;
+
+constexpr int kBM = 128;  // rows of a block: 4 warps of 32 (RM = 8)
 static_assert(kThreads == kBM, "one thread reads the mask row of each row");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 __global__ void __launch_bounds__(kThreads, 3) stacked_mean_linear_dh_kernel(
     const float* __restrict__ g, const uint8_t* __restrict__ mask,
     const float* __restrict__ w, const int* __restrict__ slot_u,
     float* __restrict__ dh, long long n, int f, int d_in, int d_out, int kw) {
-  // 4 warps, each over 32 rows x 64 columns of the tile: lane (ly, lx) =
-  // (lane / 8, lane % 8) owns rows ly + 4 i (i < 8) and columns 4 lx + j and
-  // 32 + 4 lx + j (j < 4)
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                   // [kBN][kw], 16-byte chunks swizzled
-  float* g_s = w_s + kBN * kw;         // [2][kBM][kGP]
+  float* g_s = w_s + kBN * kw;         // [2][kBM][kAP]
   // per row: the count of visible neighbours and the mask bits of its first 32
-  int* cnt_s = reinterpret_cast<int*>(g_s + 2 * kBM * kGP);  // [kBM]
+  int* cnt_s = reinterpret_cast<int*>(g_s + 2 * kBM * kAP);  // [kBM]
   uint32_t* bits_s = reinterpret_cast<uint32_t*>(cnt_s + kBM);  // [kBM]
 
   const int s = blockIdx.z;
   const int col0 = blockIdx.y * kBN;
   const long long row0 = (long long)blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rbase = warp * 32 + lane / 8;  // this thread's rows rbase + 4 i
-  const int cbase = (lane % 8) * 4;        // columns cbase + 32 h + j
+  const int tid = threadIdx.x;
+  const int rbase = tile_row<8>();  // this thread's rows rbase + 4 i
+  const int cbase = tile_col();     // columns cbase + 32 h + j
   const int u = slot_u[s];
-  const float* gs = g + (long long)s * n * d_out;
   const uint8_t* ms = mask + (long long)s * n * f;
-  const float* wu = w + (long long)u * d_in * d_out;
-  const int nk = max(1, (d_out + kKC - 1) / kKC);  // g chunks
-  const int nkw = kw / kKC;                  // g chunks per weight slice
+  const float* const gs[1] = {g + (long long)s * n * d_out};
+  const float* const wu[1] = {w + (long long)u * d_in * d_out};
   const bool vec_g = d_out % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const bool vec_w = d_out % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const bool vec_dh = d_in % 4 == 0 && reinterpret_cast<uintptr_t>(dh) % 16 == 0;
 
-  // the weight slice w[u][col0 : col0 + kBN][o0 : o0 + kw] as w_s[c][o], as
-  // it lies in memory, by cp.async in a group of its own; the 16-byte chunk
-  // j of row c sits at chunk j ^ (c / 4 % 8), so the 8 column groups of a
-  // warp, reading rows cbase + i at one chunk, hit 8 different bank groups
-  auto stage_w = [&](int o0) {
-    if (vec_w) {
-      for (int e = tid; e < kBN * (kw / 4); e += kThreads) {
-        const int c = e / (kw / 4), j = e % (kw / 4);
-        const bool in = col0 + c < d_in && o0 + 4 * j < d_out;
-        cp_async16(w_s + c * kw + ((j ^ (c / 4 % 8)) * 4),
-                   in ? wu + (long long)(col0 + c) * d_out + o0 + 4 * j : wu, in);
-      }
-    } else {
-      for (int e = tid; e < kBN * kw; e += kThreads) {
-        const int c = e / kw, o = e % kw;
-        const bool in = col0 + c < d_in && o0 + o < d_out;
-        cp_async4(w_s + c * kw + ((o / 4) ^ (c / 4 % 8)) * 4 + o % 4,
-                  in ? wu + (long long)(col0 + c) * d_out + o0 + o : wu, in);
-      }
-    }
-    cp_async_commit();
-  };
-  // g chunk q (d_out columns q * kKC ..) into ring slot q % 2
-  auto stage_g = [&](int q) {
-    const int k0 = q * kKC;
-    float* dst = g_s + (q % 2) * kBM * kGP;
-    if (vec_g) {
-      for (int e = tid; e < kBM * (kKC / 4); e += kThreads) {
-        const int r = e / (kKC / 4), c = (e % (kKC / 4)) * 4;
-        const bool in = row0 + r < n && k0 + c < d_out;
-        cp_async16(dst + r * kGP + c, in ? gs + (row0 + r) * d_out + k0 + c : gs, in);
-      }
-    } else {
-      for (int e = tid; e < kBM * kKC; e += kThreads) {
-        const int r = e / kKC, c = e % kKC;
-        const bool in = row0 + r < n && k0 + c < d_out;
-        cp_async4(dst + r * kGP + c, in ? gs + (row0 + r) * d_out + k0 + c : gs, in);
-      }
-    }
-    cp_async_commit();
-  };
-
-  stage_w(0);
-  stage_g(0);
+  float acc[8][8] = {};  // [row i][32-column half h * 4 + j]
   // the block's mask rows, read while the first copies are in flight
-  {
+  accumulate_nt<8, 1>(acc, w_s, g_s, gs, wu, n, row0, d_in, col0, d_out, kw, vec_g, vec_w,
+                      [&] {
     const long long row = row0 + tid;  // kThreads == kBM
     int cnt = 0;
     uint32_t bits = 0;
@@ -182,48 +110,7 @@ __global__ void __launch_bounds__(kThreads, 3) stacked_mean_linear_dh_kernel(
     }
     cnt_s[tid] = max(cnt, 1);
     bits_s[tid] = bits;
-  }
-  float acc[8][8] = {};  // [row i][32-column half h * 4 + j]
-  for (int q = 0; q < nk; ++q) {
-    // a deeper d_out restages the weight slice (the previous iteration's
-    // closing barrier has freed it) in a group older than chunk q + 1's, so
-    // the wait below covers it
-    if (q > 0 && q % nkw == 0) stage_w(q * kKC);
-    if (q + 1 < nk) {
-      stage_g(q + 1);   // in flight while chunk q is multiplied
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();    // chunk q, the weight slice and the mask rows visible to all
-
-    const float* gb = g_s + (q % 2) * kBM * kGP;
-    const float* wb = w_s + cbase * kw;     // rows cbase + 32 h + j
-    const int j0 = (q % nkw) * (kKC / 4);   // first 16-byte chunk of chunk q
-    const int sw = lane % 8;                // the rows' swizzle: (cbase + 32 h) / 4 % 8
-#pragma unroll 1  // unrolled, the loads of the next step spill registers
-    for (int kk = 0; kk < kKC; kk += 4) {
-      float4 bw[8];  // w[u][c][k .. k + 3] of this thread's 8 columns c
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        bw[j] = *reinterpret_cast<const float4*>(wb + ((j / 4) * 32 + j % 4) * kw +
-                                                 ((j0 + kk / 4) ^ sw) * 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(gb + (rbase + 4 * i) * kGP + kk);
-#pragma unroll
-        for (int k4 = 0; k4 < 4; ++k4) {
-          const float av = k4 == 0 ? a.x : k4 == 1 ? a.y : k4 == 2 ? a.z : a.w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float bv = k4 == 0 ? bw[j].x : k4 == 1 ? bw[j].y : k4 == 2 ? bw[j].z : bw[j].w;
-            acc[i][j] = fmaf(av, bv, acc[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();    // ring slot q % 2 (and the weight slice) free again
-  }
+  });
 
   // the epilogue: f masked copies of each row's mean gradient
 #pragma unroll
@@ -270,9 +157,8 @@ extern "C" int stacked_mean_linear_dh(
       d_in > 0x7fffffffLL || d_out > 0x7fffffffLL || f > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long dk = ((d_out > 0 ? d_out : 1) + kKC - 1) / kKC * kKC;  // d_out in whole chunks
-  const int kw = (int)(dk <= kMaxKW ? dk : kMaxKW);
-  const size_t smem = sizeof(float) * ((size_t)kw * kBN + 2 * (size_t)kBM * kGP + 2 * kBM);
+  const int kw = slice_depth(d_out);
+  const size_t smem = smem_bytes(8, kw, 2 * kBM * sizeof(int));
   const long long gx = (n + kBM - 1) / kBM;
   if (gx > 0x7fffffffLL || (d_in + kBN - 1) / kBN > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(stacked_mean_linear_dh_kernel,

@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.ops import check_launch, cuda_stream, register_kernel
+from repro_torch.kernels.ops import check_launch, cuda_stream, on_device, register_kernel
 
 __all__ = ["flash_attention", "launch_kernel", "dtype_code", "HEAD_DIMS", "INFO"]
 
@@ -77,7 +77,7 @@ def launch_kernel(q, k, v, out, causal: bool, window: Optional[int], q_offset: i
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
-    with torch.cuda.device(q.device):
+    with on_device(q.device):
         status = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                            dtype_code(q.dtype), b, h, hk, sq, sk, d, strides, int(causal),
                            -1 if window is None else int(window), int(q_offset),

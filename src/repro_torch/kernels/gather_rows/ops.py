@@ -29,6 +29,7 @@ from repro_torch.kernels.ops import (
     check_launch,
     cuda_stream,
     kernel_choice,
+    on_device,
     register_kernel,
 )
 
@@ -120,7 +121,7 @@ def launch_kernel(table: torch.Tensor, idx_dev: torch.Tensor, out: torch.Tensor)
     and staged on ``table``'s device (``idx_dev`` int32 or int64, ``out``
     allocated).  Not counted: production calls go through the wrapper;
     this entry exists so kernel time can be measured without the staging."""
-    with torch.cuda.device(table.device):
+    with on_device(table.device):
         status = _kernel()(table.data_ptr(), idx_dev.data_ptr(),
                            int(idx_dev.dtype == torch.int64), out.data_ptr(),
                            out.shape[0], out.shape[1], cuda_stream(table.device))

@@ -11,8 +11,12 @@ live here:
     for a CPU tensor; an op that is off runs the plain version wherever its
     tensors live.  There is no interpreter for CUDA kernels, so
     ``interpret=True`` is refused.
-  * **launch block sizes** — :func:`resolve_blocks`: explicit ``block_*``
-    overrides beat the CUDA defaults in :data:`DEFAULT_BLOCKS`.
+  * **launch block sizes** — none to choose: every kernel's tile is fixed
+    in its source (kernels 1 and 5 pick their rows per block from the
+    shape in their C entry points).  ``KernelConfig.block_n/block_out/
+    block_in`` are the reference's config fields, validated and kept, but no
+    CUDA launch reads them; :func:`refuse_autotune` refuses
+    ``autotune=True``, since there is no tuning table.
   * **launch accounting** — each kernel registers a :class:`KernelInfo`
     in :data:`KERNELS`; its wrapper calls :meth:`KernelInfo.record` exactly
     where it launches the kernel, so a run can show which kernels its path
@@ -24,6 +28,7 @@ live here:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Dict, Tuple
 
@@ -37,25 +42,20 @@ __all__ = [
     "register_kernel",
     "reset_launch_counts",
     "kernel_choice",
-    "resolve_blocks",
+    "refuse_autotune",
     "check_launch",
     "cuda_stream",
+    "on_device",
 ]
 
 
-# CUDA launch defaults per op: (block_n, block_out, block_in)
+# The fixed launch sizes of csrc/stacked_attn_epilogue.cu (block_n,
+# block_out, block_in): block_n is the budget of (row, neighbour) pairs per
+# block, which holds max(1, block_n // f) destination rows; block_out the
+# 64-column pass of the projection; block_in the d_in chunk.  The kernels
+# on the fp32_tile.cuh core (1, 2, 5) take no sizes at all.
 DEFAULT_BLOCKS: Dict[str, Tuple[int, int, int]] = {
-    "stacked_mean_linear": (16, 64, 64),
-    # fixed in csrc/stacked_mean_linear_dh.cu, which takes no block sizes:
-    # rows of a block, the deepest weight slice kept resident, the d_in
-    # columns of a block
-    "stacked_mean_linear_dh": (128, 128, 64),
-    # block_n is the budget of (row, neighbour) pairs per block: a block
-    # holds max(1, block_n // f) destination rows; block_out is the fixed
-    # 64-column pass of the projection; block_in the d_in chunk
     "stacked_attn_epilogue": (64, 64, 32),
-    # (pairs, d_in columns, H chunk) of one block of dh
-    "stacked_attn_dh": (64, 64, 32),
 }
 
 
@@ -107,19 +107,13 @@ def kernel_choice(opts, op: str) -> bool:
     return bool(getattr(opts, "enabled", True) and getattr(opts, op, True))
 
 
-def resolve_blocks(opts, op: str) -> Tuple[int, int, int]:
-    """The (block_n, block_out, block_in) a launch of ``op`` uses: explicit
-    overrides on ``opts`` beat :data:`DEFAULT_BLOCKS`."""
-    bn, bo, bc = DEFAULT_BLOCKS[op]
-    if opts is not None:
-        if getattr(opts, "autotune", False):
-            raise NotImplementedError(
-                "kernels.autotune: the port has no CUDA tuning table yet; "
-                "pass explicit kernels.block_* sizes instead")
-        bn = getattr(opts, "block_n", None) or bn
-        bo = getattr(opts, "block_out", None) or bo
-        bc = getattr(opts, "block_in", None) or bc
-    return bn, bo, bc
+def refuse_autotune(opts) -> None:
+    """Raise on ``kernels.autotune=True``: the port's kernels have fixed
+    tiles and no tuning table (the ``block_*`` fields reach no launch)."""
+    if getattr(opts, "autotune", False):
+        raise NotImplementedError(
+            "kernels.autotune: the port's CUDA kernels have fixed tiles and no "
+            "tuning table")
 
 
 def check_launch(status: int, name: str) -> None:
@@ -131,3 +125,12 @@ def check_launch(status: int, name: str) -> None:
 def cuda_stream(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device: torch.device):
+    """The context a raw launch on ``device`` runs in: ``device`` made
+    current, and nothing to do when it already is (the usual case), so a
+    launch costs the host no device switch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.ops import check_launch, cuda_stream, register_kernel
+from repro_torch.kernels.ops import check_launch, cuda_stream, on_device, register_kernel
 from repro_torch.kernels.relation_agg.ref import relation_agg_ref
 
 __all__ = ["relation_agg", "relation_agg_ref", "relation_agg_forward", "launch_kernel",
@@ -55,7 +55,7 @@ def launch_kernel(h, mask_u8, w, b, out) -> None:
     :func:`relation_agg`; this entry exists so kernel time can be measured
     without the checks."""
     n, f, d_in = h.shape
-    with torch.cuda.device(h.device):
+    with on_device(h.device):
         status = _kernel()(h.data_ptr(), mask_u8.data_ptr(), w.data_ptr(), b.data_ptr(),
                            out.data_ptr(), n, f, d_in, w.shape[1], cuda_stream(h.device))
     check_launch(status, "relation_agg")

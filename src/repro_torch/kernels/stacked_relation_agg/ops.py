@@ -75,8 +75,9 @@ from repro_torch.kernels.ops import (
     check_launch,
     cuda_stream,
     kernel_choice,
+    on_device,
+    refuse_autotune,
     register_kernel,
-    resolve_blocks,
 )
 from repro_torch.kernels.stacked_relation_agg.ref import stacked_agg_ref
 
@@ -143,16 +144,13 @@ _DH_FN = None
 _SC_FN = None
 _AE_FN = None
 _ADH_FN = None
-# must match csrc/stacked_mean_linear.cu; _THREADS also stacked_softmax_combine.cu
-_THREADS, _MAX_ACC = 256, 16
-# must match csrc/stacked_mean_linear_dh.cu: the d_in columns of a block
-_DH_COLS = DEFAULT_BLOCKS["stacked_mean_linear_dh"][2]
-# must match csrc/stacked_attn_epilogue.cu and csrc/stacked_attn_dh.cu:
-# the fixed 64 x 64 tiles, the largest d_in / H chunk, and the opt-in
-# shared memory of one block on sm_90
+# must match csrc/stacked_softmax_combine.cu: the threads of a block
+_THREADS = 256
+# must match csrc/fp32_tile.cuh: the columns of a block of kernels 1, 2, 5
+_TILE_COLS = 64
+# must match csrc/stacked_attn_epilogue.cu: the fixed 64 x 64 tile, the
+# largest d_in chunk, and the opt-in shared memory of one block on sm_90
 _ATTN_TILE, _ATTN_MAX_CHUNK, _SMEM_LIMIT = 64, 64, 232448
-
-Blocks = Tuple[int, int, int]
 
 
 def _host_slots(slot_u, num_rows: int) -> np.ndarray:
@@ -264,8 +262,7 @@ def _kernel():
         from repro_torch.kernels.build import load
 
         fn = load("stacked_mean_linear").stacked_mean_linear_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -301,7 +298,7 @@ def _cuda_operands(op: str, device, named, float_names, mask):
     return mask
 
 
-def _mean_linear_forward(h, mask, w, b, slots, blocks: Blocks) -> torch.Tensor:
+def _mean_linear_forward(h, mask, w, b, slots) -> torch.Tensor:
     """The forward on checked shapes: the kernel for CUDA, plain for CPU."""
     if h.device.type == "cpu":
         return stacked_mean_linear_ref(h, mask, w, b, slots)
@@ -312,31 +309,27 @@ def _mean_linear_forward(h, mask, w, b, slots, blocks: Blocks) -> torch.Tensor:
     mask_u8 = _cuda_operands("stacked_mean_linear", h.device,
                              (("h", h), ("mask", mask), ("w", w), ("b", b)),
                              ("h", "w", "b"), mask)
-    bn, bo, bc = blocks
-    if bn * bo > _THREADS * _MAX_ACC:
-        raise ValueError(f"block_n * block_out = {bn * bo} exceeds "
-                         f"{_THREADS * _MAX_ACC} outputs per block")
-    if rb > 65535:
-        raise ValueError(f"stacked_mean_linear: {rb} slots exceed the grid's 65535")
+    if rb > 65535 or -(-d_out // _TILE_COLS) > 65535:
+        raise ValueError(f"stacked_mean_linear: grid of {rb} slots x "
+                         f"{-(-d_out // _TILE_COLS)} column tiles exceeds 65535")
     out = torch.empty((rb, n, d_out), dtype=torch.float32, device=h.device)
     if rb == 0 or n == 0 or d_out == 0:
         return out
-    launch_kernel(h, mask_u8, w, b, slots, out, bn, bo, bc)
+    launch_kernel(h, mask_u8, w, b, slots, out)
     INFO.record((rb, n, f, d_in, d_out, w.shape[0]))
     return out
 
 
-def launch_kernel(h, mask_u8, w, b, slot_u_dev, out, block_n, block_out, block_in) -> None:
+def launch_kernel(h, mask_u8, w, b, slot_u_dev, out) -> None:
     """One raw forward launch on operands already checked and staged on
     ``h``'s device (``slot_u_dev`` int32, ``out`` allocated).  Not counted:
     production calls go through the wrapper; this entry exists so kernel
     time can be measured without the staging."""
     rb, n, f, d_in = h.shape
-    with torch.cuda.device(h.device):
+    with on_device(h.device):
         status = _kernel()(h.data_ptr(), mask_u8.data_ptr(), w.data_ptr(), b.data_ptr(),
                            slot_u_dev.data_ptr(), out.data_ptr(), rb, n, f, d_in,
-                           w.shape[2], block_n, block_out, block_in,
-                           cuda_stream(h.device))
+                           w.shape[2], cuda_stream(h.device))
     check_launch(status, "stacked_mean_linear")
 
 
@@ -345,7 +338,7 @@ def launch_dh_kernel(g, mask_u8, w, slot_u_dev, dh) -> None:
     ``g``'s device (``dh`` allocated as ``[rb, n, f, d_in]``).  Not counted,
     like :func:`launch_kernel`."""
     rb, n, f, d_in = dh.shape
-    with torch.cuda.device(g.device):
+    with on_device(g.device):
         status = _dh_kernel()(g.data_ptr(), mask_u8.data_ptr(), w.data_ptr(),
                               slot_u_dev.data_ptr(), dh.data_ptr(), rb, n, f, d_in,
                               g.shape[2], cuda_stream(g.device))
@@ -384,9 +377,9 @@ def stacked_mean_linear_dh(
         raise ValueError(f"stacked_mean_linear_dh: unsupported device {g.device}")
     mask_u8 = _cuda_operands("stacked_mean_linear_dh", g.device,
                              (("g", g), ("mask", mask), ("w", w)), ("g", "w"), mask)
-    if rb > 65535 or -(-d_in // _DH_COLS) > 65535:
+    if rb > 65535 or -(-d_in // _TILE_COLS) > 65535:
         raise ValueError(f"stacked_mean_linear_dh: grid of {rb} slots x "
-                         f"{-(-d_in // _DH_COLS)} column tiles exceeds 65535")
+                         f"{-(-d_in // _TILE_COLS)} column tiles exceeds 65535")
     dh = torch.empty((rb, n, f, d_in), dtype=torch.float32, device=g.device)
     if rb == 0 or n == 0 or f == 0 or d_in == 0:
         return dh
@@ -399,9 +392,9 @@ class _StackedMeanLinear(torch.autograd.Function):
     """Forward kernel + stack-form backward (see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, h, mask, w, b, slots, blocks: Blocks):
+    def forward(ctx, h, mask, w, b, slots):
         ctx.save_for_backward(h, mask, w, slots)
-        return _mean_linear_forward(h, mask, w, b, slots, blocks)
+        return _mean_linear_forward(h, mask, w, b, slots)
 
     @staticmethod
     def backward(ctx, g):
@@ -412,7 +405,7 @@ class _StackedMeanLinear(torch.autograd.Function):
             dh = stacked_mean_linear_dh(g, mask, w, slots)
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
             dw, db = _stack_form_grads(h, mask, g, slots, w.shape[0])
-        return dh, None, dw, db, None, None
+        return dh, None, dw, db, None
 
 
 def stacked_mean_linear(
@@ -421,9 +414,6 @@ def stacked_mean_linear(
     w: torch.Tensor,  # [U, d_in, d_out] float32
     b: torch.Tensor,  # [U, d_out] float32
     slot_u,  # [rb] host integer array in [0, U), or stage_slot_u's tensor
-    block_n: Optional[int] = None,
-    block_out: Optional[int] = None,
-    block_in: Optional[int] = None,
 ) -> torch.Tensor:
     """``out[s] = masked_mean(h[s], mask[s]) @ w[slot_u[s]] + b[slot_u[s]]``,
     differentiable in ``h``, ``w`` and ``b`` (:class:`_StackedMeanLinear`).
@@ -431,9 +421,8 @@ def stacked_mean_linear(
     CUDA tensors launch the kernels (raising on what they do not take); CPU
     tensors run the plain versions.  ``slot_u`` is a host array, checked and
     copied to the device on each call, or an int32 tensor on ``h``'s device
-    from :func:`stage_slot_u`, checked when it was staged.  The ``block_*``
-    sizes are the forward kernel's; the backward launches the ``dh`` kernel
-    at its own defaults (``DEFAULT_BLOCKS``), whose limits differ."""
+    from :func:`stage_slot_u`, checked when it was staged.  Both kernels
+    have fixed tiles: there are no block sizes to pass."""
     if h.dim() != 4 or mask.shape != h.shape[:3] or w.dim() != 3 or b.dim() != 2:
         raise ValueError(
             f"stacked_mean_linear shapes: h {tuple(h.shape)}, mask "
@@ -444,9 +433,7 @@ def stacked_mean_linear(
         raise ValueError(f"stacked_mean_linear: w {tuple(w.shape)} / b "
                          f"{tuple(b.shape)} do not match d_in={d_in}")
     slots = _slots_for(slot_u, U, rb, h.device, "stacked_mean_linear")
-    dn, do, di = resolve_blocks(None, "stacked_mean_linear")
-    blocks = (block_n or dn, block_out or do, block_in or di)
-    return _StackedMeanLinear.apply(h, mask, w, b, slots, blocks)
+    return _StackedMeanLinear.apply(h, mask, w, b, slots)
 
 
 # --------------------------------------------------------------------------
@@ -577,8 +564,7 @@ def _adh_kernel():
         from repro_torch.kernels.build import load
 
         fn = load("stacked_attn_dh").stacked_attn_dh
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5
-                       + [ctypes.c_int] + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _ADH_FN = fn
     return _ADH_FN
@@ -594,7 +580,7 @@ def launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0, v0,
     device (outputs allocated; ``z0``/``v0`` None without residuals).  Not
     counted: production calls go through :func:`attn_epilogue_forward`."""
     rb, n, f, d_in = h.shape
-    with torch.cuda.device(h.device):
+    with on_device(h.device):
         status = _ae_kernel()(
             h.data_ptr(), mask_u8.data_ptr(), qv.data_ptr(), qv.stride(0), qv.stride(1),
             _ptr(eb), we.data_ptr(), _ptr(wv), _ptr(pe), _ptr(pv), us.data_ptr(),
@@ -604,14 +590,14 @@ def launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0, v0,
     check_launch(status, "stacked_attn_epilogue")
 
 
-def launch_attn_dh(dz, dv, we, wv, us, dh, block_in) -> None:
+def launch_attn_dh(dz, dv, we, wv, us, dh) -> None:
     """One raw ``dh`` launch on operands already checked and on ``dz``'s
     device (``dh`` allocated).  Not counted, like :func:`launch_attn_epilogue`."""
     rb, n, f, H = dz.shape
-    with torch.cuda.device(dz.device):
+    with on_device(dz.device):
         status = _adh_kernel()(dz.data_ptr(), _ptr(dv), we.data_ptr(), _ptr(wv),
                                us.data_ptr(), dh.data_ptr(), rb, n, f, we.shape[1], H,
-                               block_in, cuda_stream(dz.device))
+                               cuda_stream(dz.device))
     check_launch(status, "stacked_attn_dh")
 
 
@@ -717,19 +703,15 @@ def stacked_attn_dh(dz, dv, we, wv, us) -> torch.Tensor:
         if t.device != dz.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{op} kernel takes contiguous float32 {name} on {dz.device}, "
                              f"got {t.dtype} on {t.device}")
-    bn, bo, bc = DEFAULT_BLOCKS[op]
-    if (bn, bo) != (_ATTN_TILE, _ATTN_TILE) or not 1 <= bc <= _ATTN_MAX_CHUNK:
-        raise ValueError(f"{op}: blocks {(bn, bo, bc)}: block_n and block_out must be "
-                         f"{_ATTN_TILE}, block_in in [1, {_ATTN_MAX_CHUNK}]")
-    if rb > 65535 or -(-d_in // _ATTN_TILE) > 65535:
-        raise ValueError(f"{op}: grid of {rb} slots x {-(-d_in // _ATTN_TILE)} column "
+    if rb > 65535 or -(-d_in // _TILE_COLS) > 65535:
+        raise ValueError(f"{op}: grid of {rb} slots x {-(-d_in // _TILE_COLS)} column "
                          f"tiles exceeds 65535")
     dh = torch.empty((rb, n, f, d_in), dtype=torch.float32, device=dz.device)
     if min(rb, n, f, d_in) == 0:
         return dh
     if H == 0:
         return dh.zero_()
-    launch_attn_dh(dz, dv, we, wv, us, dh, bc)
+    launch_attn_dh(dz, dv, we, wv, us, dh)
     INFO_ADH.record((rb, n, f, d_in, H, we.shape[0], 0 if wv is None else wv.shape[0]))
     return dh
 
@@ -851,7 +833,7 @@ def stacked_attn_epilogue(epi, h: torch.Tensor, mask: torch.Tensor) -> torch.Ten
     return out if epi.bias is None else out + epi.bias[:, None, :]
 
 
-def _epilogue_linear(w_stack, u, x, *, blocks: Blocks) -> torch.Tensor:
+def _epilogue_linear(w_stack, u, x) -> torch.Tensor:
     """Per-slot projection ``x @ w_stack[u]`` for the q side of an attention
     epilogue: :func:`stacked_mean_linear` at fanout 1 (the masked mean over
     one neighbour is the identity), so the weights are read from the stack
@@ -860,7 +842,7 @@ def _epilogue_linear(w_stack, u, x, *, blocks: Blocks) -> torch.Tensor:
     zb = torch.zeros((w_stack.shape[0], w_stack.shape[2]), dtype=w_stack.dtype,
                      device=w_stack.device)
     ones = torch.ones((rb, n, 1), dtype=torch.bool, device=x.device)
-    return stacked_mean_linear(x.contiguous()[:, :, None, :], ones, w_stack, zb, u, *blocks)
+    return stacked_mean_linear(x.contiguous()[:, :, None, :], ones, w_stack, zb, u)
 
 
 def _is_cuda(t: torch.Tensor) -> bool:
@@ -891,7 +873,7 @@ def launch_softmax_combine(e, mask_u8, v, out, rows) -> None:
     (``v`` ``[rb, n, f, nh, dh]``, ``out`` allocated).  Not counted:
     production calls go through :func:`softmax_combine_forward`."""
     rb, n, f, nh, dh = v.shape
-    with torch.cuda.device(e.device):
+    with on_device(e.device):
         status = _sc_kernel()(e.data_ptr(), mask_u8.data_ptr(), v.data_ptr(), out.data_ptr(),
                               rb, n, f, nh, dh, rows, cuda_stream(e.device))
     check_launch(status, "stacked_softmax_combine")
@@ -983,25 +965,19 @@ def stacked_agg(
     opts=None,
 ) -> torch.Tensor:
     """One level's AGG_r for every branch slot (see module docstring).
-    The ``stacked_mean_linear`` forward's launch block sizes (R-GCN's
-    aggregation and the attention models' q side) come from ``opts``
-    (``resolve_blocks``); every other kernel keeps its defaults."""
+    The kernels have fixed tiles: ``opts``' ``block_*`` fields reach no
+    launch, and ``autotune=True`` raises (:func:`refuse_autotune`)."""
     scope_of = {s.name: s.scope for s in module.specs}
     use = kernel_choice(opts, "stacked_agg")
     if (use and module.fused == "mean_linear" and scope_of.get("w") is not None
             and scope_of.get("w") == scope_of.get("b")):
-        bn, bo, bc = resolve_blocks(opts, "stacked_mean_linear")
-        return stacked_mean_linear(
-            h, mask, stacks["w"], stacks["b"], slot_u[scope_of["w"]],
-            block_n=bn, block_out=bo, block_in=bc,
-        )
+        refuse_autotune(opts)
+        return stacked_mean_linear(h, mask, stacks["w"], stacks["b"], slot_u[scope_of["w"]])
     if use and module.fused == "softmax_combine":
         if getattr(opts, "fuse_epilogue", True):
-            blocks = resolve_blocks(opts, "stacked_mean_linear")
-            epi = module.attn_epilogue(
-                stacks, slot_u, q,
-                linear=lambda w, u, x: _epilogue_linear(w, u, x, blocks=blocks),
-                take=take_slots)
+            refuse_autotune(opts)
+            epi = module.attn_epilogue(stacks, slot_u, q, linear=_epilogue_linear,
+                                       take=take_slots)
             if epi is not None:
                 return stacked_attn_epilogue(epi, h, mask)
         return _attn_parts_agg(module, stacks, slot_u, h, q, mask)

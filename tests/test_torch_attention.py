@@ -111,6 +111,21 @@ def test_attention_stacked_agg_matches_reference(model, rb, n, f, path):
 
 
 @pytest.mark.parametrize("model", ["rgat", "hgt"])
+def test_block_fields_change_no_attention_result(model):
+    """kernels.block_* reach no launch on the attention path either (the
+    q side's stacked_mean_linear and stacked_attn_dh have fixed tiles):
+    outputs and gradients are the same bit for bit with them set."""
+    mod, stacks, slot_u, h, q, mask = _module_case(model, 3, 13, 4, seed=4)
+    plain = _port_grads(model, stacks, slot_u, h, q, mask, KernelConfig())
+    sized = _port_grads(model, stacks, slot_u, h, q, mask,
+                        KernelConfig(block_n=8, block_out=16, block_in=32))
+    np.testing.assert_array_equal(sized[0], plain[0])
+    for leaf, g in plain[1].items():
+        np.testing.assert_array_equal(sized[1][leaf], g, err_msg=leaf)
+    np.testing.assert_array_equal(sized[2], plain[2])
+
+
+@pytest.mark.parametrize("model", ["rgat", "hgt"])
 def test_attention_grad_lands_in_stack_rows(model):
     """Slots sharing a stack row sum into it; rows no slot references get
     exactly zero gradient (the contract sync_stack_grads relies on)."""

@@ -121,7 +121,7 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
                             mask, w, b, np.array([0, 1]))
     with pytest.raises(ValueError):
         stacked_mean_linear(h, mask, w.cpu(), b, np.array([0, 1]))
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):  # the kernel's tile is fixed: no block sizes
         stacked_mean_linear(h, mask, w, b, np.array([0, 1]), block_n=64, block_out=128)
     with pytest.raises(ValueError, match="int32"):
         stacked_mean_linear(h, mask, w, b, torch.tensor([0, 1], device=cuda_device))
@@ -234,30 +234,74 @@ def test_cuda_dh_is_the_same_bit_for_bit(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_block_override_reaches_only_the_forward(cuda_device):
-    """kernels.block_* overrides size the forward kernel only: the dh
-    kernel's tile is fixed (it takes no block sizes), and the backward
-    trains as it does at the defaults."""
+    """kernels.block_* reach no launch on the card: both kernels' tiles are
+    fixed (their wrappers take no block sizes), and the outputs and
+    gradients with the fields set equal those without, bit for bit."""
     rb, n, f, di, do, U = 6, 200, 3, 128, 64, 6
     h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=11)
     g = np.random.default_rng(12).standard_normal((rb, n, do)).astype(np.float32)
+    dev = [torch.from_numpy(a).to(cuda_device) for a in (h, mask, w, b, g)]
     with pytest.raises(TypeError):
-        stacked_mean_linear_dh(torch.from_numpy(g).to(cuda_device),
-                               torch.from_numpy(mask).to(cuda_device),
-                               torch.from_numpy(w).to(cuda_device), slot_u, block_n=64)
-    grads = []
+        stacked_mean_linear_dh(dev[4], dev[1], dev[2], slot_u, block_n=64)
+    with pytest.raises(TypeError):
+        stacked_mean_linear(*dev[:4], slot_u, block_in=64)
+    results = []
     for opts in (None, KernelConfig(block_n=64, block_in=128)):
         th, tw, tb = (torch.from_numpy(a).to(cuda_device).requires_grad_(True)
                       for a in (h, w, b))
-        before = kops.KERNELS["stacked_mean_linear_dh"].launches
+        before = {k: kops.KERNELS[k].launches
+                  for k in ("stacked_mean_linear", "stacked_mean_linear_dh")}
         out = stacked_agg(get_relation_module("rgcn"), {"w": tw, "b": tb},
-                          {"relation": slot_u}, th, None,
-                          torch.from_numpy(mask).to(cuda_device), opts=opts)
-        grads.append([x.cpu().numpy() for x in torch.autograd.grad(
-            out, (th, tw, tb), torch.from_numpy(g).to(cuda_device))])
+                          {"relation": slot_u}, th, None, dev[1], opts=opts)
+        results.append([out.detach()] + list(torch.autograd.grad(out, (th, tw, tb), dev[4])))
         torch.cuda.synchronize()
-        assert kops.KERNELS["stacked_mean_linear_dh"].launches == before + 1
-    for name, a, c in zip(("dh", "dw", "db"), grads[1], grads[0]):
-        np.testing.assert_allclose(a, c, **TOL, err_msg=name)
+        for k, v in before.items():
+            assert kops.KERNELS[k].launches == v + 1, k
+    for name, a, c in zip(("out", "dh", "dw", "db"), results[1], results[0]):
+        assert torch.equal(a, c), name
+
+
+def _ragged_mean_linear_case(n, f, di, do, seed, device):
+    """Kernel 1's ragged case: five slots on two stack rows, every 7th row
+    fully masked; h drawn on the card from the seed (up to 1 GB)."""
+    r = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn((5, n, f, di), generator=gen, device=device)
+    mask = r.random((5, n, f)) > 0.3
+    mask[:, ::7, :] = False
+    w = torch.from_numpy((r.standard_normal((2, di, do)) * 0.1).astype(np.float32)).to(device)
+    b = torch.from_numpy((r.standard_normal((2, do)) * 0.1).astype(np.float32)).to(device)
+    return h, torch.from_numpy(mask).to(device), w, b, np.array([0, 1, 1, 0, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", DH_RAGGED_N)
+@pytest.mark.parametrize("di", DH_RAGGED_DIN)
+def test_cuda_mean_linear_ragged_matches_plain(cuda_device, n, di):
+    """Kernel 1 at n x d_in, each over d_out in {1, 65, 100} and f in
+    {1, 3, 16} (the f = 1 and f > 1 paths, every rows-per-block choice)."""
+    for do in (1, 65, 100):
+        for f in (1, 3, 16):
+            h, mask, w, b, slot_u = _ragged_mean_linear_case(n, f, di, do, n * di + do * f,
+                                                             cuda_device)
+            want = stacked_mean_linear_ref(h, mask, w, b, slot_u)
+            got = stacked_mean_linear(h, mask, w, b, slot_u)
+            staged = stacked_mean_linear(h, mask, w, b, stage_slot_u(slot_u, 2, cuda_device))
+            torch.cuda.synchronize()
+            assert torch.equal(got, staged), (n, di, do, f)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL,
+                                       err_msg=str((n, di, do, f)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 16])
+def test_cuda_mean_linear_is_the_same_bit_for_bit(cuda_device, f):
+    """No atomics: two launches on the same inputs agree bit for bit (the
+    q-side leaf at f = 1, R-GCN's leaf at f = 3, a serving block at f = 16)."""
+    rb, n = (6, 4096) if f < 16 else (3, 1024)
+    h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, 128, 64, rb, seed=f)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (h, mask, w, b)]
+    assert torch.equal(stacked_mean_linear(*args, slot_u), stacked_mean_linear(*args, slot_u))
 
 
 # --------------------------------------------------------------------------
@@ -345,6 +389,46 @@ def test_cuda_attn_dh_matches_plain(cuda_device, shape, variant):
     assert kops.KERNELS["stacked_attn_dh"].launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), stacked_attn_dh_ref(
         dz, dv, ops["we"], ops["wv"], us).cpu().numpy(), **TOL)
+
+
+# kernel 5's ragged cases: (n, f) with n * f in {1, 3000, 12291} x d_in,
+# each over H in {15, 64, 72, 130}, with and without dv; five slots sharing
+# stack rows
+ADH_RAGGED_NF = [(1, 1), (1000, 3), (4097, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", ADH_RAGGED_NF)
+@pytest.mark.parametrize("di", DH_RAGGED_DIN)
+def test_cuda_attn_dh_ragged_matches_plain(cuda_device, nf, di):
+    n, f = nf
+    for H in (15, 64, 72, 130):
+        for two in (False, True):
+            r = np.random.default_rng(n * di + H + two)
+            t = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
+                (r.standard_normal(s) * sc).astype(np.float32)).to(cuda_device)
+            dz, dv = t(5, n, f, H), (t(5, n, f, H) if two else None)
+            we, wv = t(2, di, H, sc=0.1), (t(3, di, H, sc=0.1) if two else None)
+            us = attn_slots(np.array([0, 0, 1, 0, 1]), np.array([2, 0, 2, 1, 0]) % (2 + two),
+                            np.zeros(5, np.int64), (2, 2 + two, 1), 5, cuda_device)
+            got = stacked_attn_dh(dz, dv, we, wv, us)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       stacked_attn_dh_ref(dz, dv, we, wv, us).cpu().numpy(),
+                                       **TOL, err_msg=str((n, f, di, H, two)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["rgat", "hgt"])
+def test_cuda_attn_dh_is_the_same_bit_for_bit(cuda_device, variant):
+    """No atomics: two launches at the training leaf agree bit for bit."""
+    _, _, ops, us, _ = _attn_case(6, 4096, 3, 128, 4, 16, 6, variant, 5, cuda_device)
+    r = np.random.default_rng(6)
+    g = lambda: torch.from_numpy(  # noqa: E731
+        r.standard_normal((6, 4096, 3, 64)).astype(np.float32)).to(cuda_device)
+    dz, dv = g(), (None if variant == "rgat" else g())
+    assert torch.equal(stacked_attn_dh(dz, dv, ops["we"], ops["wv"], us),
+                       stacked_attn_dh(dz, dv, ops["we"], ops["wv"], us))
 
 
 def _module_inputs(model, rb, n, f, di, dd, seed):

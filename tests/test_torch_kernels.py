@@ -32,6 +32,7 @@ from repro_torch.kernels.stacked_relation_agg import (
     stacked_agg,
     segment_sum,
     stacked_agg_ref,
+    stacked_attn_dh,
     stacked_mean_linear,
     stacked_mean_linear_dh,
     stacked_mean_linear_dh_ref,
@@ -101,27 +102,61 @@ def test_stacked_agg_oracle_path_matches_kernel_path(rb, n, f, di, do, U):
 
 
 def test_block_override_leaves_the_dh_kernel_at_its_defaults(monkeypatch):
-    """kernels.block_* size the forward kernel only: the backward asks for
-    dh with no block sizes (the dh kernel's tile is fixed).  Gradients
-    match the run without the override."""
+    """kernels.block_* reach no launch: the forward and the backward ask for
+    their ops with no block sizes (both kernels' tiles are fixed), and the
+    outputs and gradients with the fields set are the ones without, bit for
+    bit."""
     from repro_torch.kernels.stacked_relation_agg import ops as sml
 
     calls = []
-    dh = sml.stacked_mean_linear_dh
-    monkeypatch.setattr(sml, "stacked_mean_linear_dh",
-                        lambda *a, **k: calls.append((len(a), k)) or dh(*a, **k))
+    for name in ("stacked_mean_linear", "stacked_mean_linear_dh"):
+        fn = getattr(sml, name)
+        monkeypatch.setattr(sml, name, lambda *a, _fn=fn, _name=name, **k:
+                            calls.append((_name, len(a), k)) or _fn(*a, **k))
     h, q, mask, w, b, slot_u = _mean_linear_case(6, 20, 3, 128, 64, 6, seed=5)
     g = torch.from_numpy(np.random.default_rng(6).standard_normal((6, 20, 64)).astype(np.float32))
-    grads = []
+    results = []
     for opts in (None, KernelConfig(block_n=64, block_in=128)):
         th, tw, tb = (torch.from_numpy(a).requires_grad_(True) for a in (h, w, b))
         out = stacked_agg(get_relation_module("rgcn"), {"w": tw, "b": tb},
                           {"relation": slot_u}, th, torch.from_numpy(q),
                           torch.from_numpy(mask), opts=opts)
-        grads.append(torch.autograd.grad(out, (th, tw, tb), g))
-    assert calls == [(4, {}), (4, {})]
-    for a, c in zip(*grads):
+        results.append((out.detach(), *torch.autograd.grad(out, (th, tw, tb), g)))
+    assert calls == [("stacked_mean_linear", 5, {}), ("stacked_mean_linear_dh", 4, {})] * 2
+    for a, c in zip(*results):
         torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fields", [dict(block_n=8), dict(block_out=16, block_in=32),
+                                    dict(block_n=512, block_out=512, block_in=512)])
+def test_block_fields_change_no_result(fields):
+    """Any kernels.block_* setting leaves R-GCN's outputs and gradients
+    bit for bit where they are without one."""
+    h, q, mask, w, b, slot_u = _mean_linear_case(5, 17, 4, 37, 24, 3, seed=8)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((5, 17, 24)).astype(np.float32))
+    results = []
+    for opts in (KernelConfig(), KernelConfig(**fields)):
+        th, tw, tb = (torch.from_numpy(a).requires_grad_(True) for a in (h, w, b))
+        out = stacked_agg(get_relation_module("rgcn"), {"w": tw, "b": tb},
+                          {"relation": slot_u}, th, torch.from_numpy(q),
+                          torch.from_numpy(mask), opts=opts)
+        results.append((out.detach(), *torch.autograd.grad(out, (th, tw, tb), g)))
+    for a, c in zip(*results):
+        assert torch.equal(a, c)
+
+
+def test_kernels_take_no_block_sizes():
+    """Kernels 1 and 5 have fixed tiles: their wrappers take no block_*."""
+    h, q, mask, w, b, slot_u = _mean_linear_case(2, 3, 4, 5, 6, 2, seed=1)
+    args = [torch.from_numpy(a) for a in (h, mask, w, b)]
+    for kw in (dict(block_n=64), dict(block_out=64), dict(block_in=32)):
+        with pytest.raises(TypeError):
+            stacked_mean_linear(*args, slot_u, **kw)
+    dz = torch.zeros((2, 3, 4, 6))
+    us = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        stacked_attn_dh(dz, None, args[2], None, us, block_in=32)
+    assert stacked_attn_dh(dz, None, torch.zeros((1, 5, 6)), None, us).shape == (2, 3, 4, 5)
 
 
 @pytest.mark.parametrize("rows,d,n,idx_dtype", [
@@ -225,16 +260,22 @@ def test_kernel_options_policy():
     assert kops.kernel_choice(KernelConfig(gather=False), "stacked_agg")
     with pytest.raises(ValueError, match="interpret"):
         kops.kernel_choice(KernelConfig(interpret=True), "gather")
-    assert kops.resolve_blocks(None, "stacked_mean_linear") == \
-        kops.DEFAULT_BLOCKS["stacked_mean_linear"]
-    assert kops.resolve_blocks(KernelConfig(block_n=8, block_in=32),
-                               "stacked_mean_linear")[::2] == (8, 32)
+    # no tuning table: autotune raises, on its own and on the kernel path
+    kops.refuse_autotune(None)
+    kops.refuse_autotune(KernelConfig(block_n=8, block_in=32))
     with pytest.raises(NotImplementedError):
-        kops.resolve_blocks(KernelConfig(autotune=True), "stacked_mean_linear")
+        kops.refuse_autotune(KernelConfig(autotune=True))
+    h, q, mask, w, b, slot_u = _mean_linear_case(2, 5, 3, 4, 6, 2, seed=1)
+    with pytest.raises(NotImplementedError):
+        stacked_agg(get_relation_module("rgcn"), {"w": torch.from_numpy(w),
+                                                  "b": torch.from_numpy(b)},
+                    {"relation": slot_u}, torch.from_numpy(h), torch.from_numpy(q),
+                    torch.from_numpy(mask), opts=KernelConfig(autotune=True))
     assert set(kops.KERNELS) >= {"stacked_mean_linear", "stacked_mean_linear_dh",
                                  "gather_rows"}
-    assert kops.resolve_blocks(None, "stacked_mean_linear_dh") == \
-        kops.DEFAULT_BLOCKS["stacked_mean_linear_dh"]
+    # the kernels on the fp32_tile.cuh core have no launch sizes to choose
+    assert set(kops.DEFAULT_BLOCKS) == {"stacked_attn_epilogue"}
+    assert not hasattr(kops, "resolve_blocks")
 
 
 def test_cpu_path_launches_no_kernel():
@@ -267,6 +308,21 @@ def test_kernel_sources_declare_c_entry_points():
         assert "return (int)cudaGetLastError();" in text
         assert build.library_path(name).name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_library_path_covers_included_headers(tmp_path, monkeypatch):
+    """An edited header gives every source a new library path, so a stale
+    library built against the old header is never loaded."""
+    from repro_torch.kernels import build
+
+    assert '#include "fp32_tile.cuh"' in (build.CSRC / "stacked_mean_linear.cu").read_text()
+    (tmp_path / "k.cu").write_text('#include "core.cuh"\n')
+    (tmp_path / "core.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("k")
+    assert build.library_path("k") == before
+    (tmp_path / "core.cuh").write_text("// two\n")
+    assert build.library_path("k") != before
 
 
 # --------------------------------------------------------------------------

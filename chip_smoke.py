@@ -13,10 +13,11 @@ non-zero exit and no result line):
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
      process per source, all at once; the ptxas registers and spills of every
      instantiation of the kernels redesigned for Hopper (flash_attention's
-     wgmma kernel; stacked_mean_linear, stacked_mean_linear_dh and
-     stacked_attn_dh on the fp32 register-tiled core ``csrc/fp32_tile.cuh``),
-     none of which may spill, and ``cuobjdump -sass`` of the flash attention
-     library, which must hold HGMMA and UTMALDG instructions;
+     wgmma kernel; stacked_mean_linear, stacked_mean_linear_dh,
+     stacked_attn_dh and stacked_attn_epilogue on the fp32 register-tiled
+     core ``csrc/fp32_tile.cuh``; gather_rows), none of which may spill, and
+     ``cuobjdump -sass`` of the flash attention library, which must hold
+     HGMMA and UTMALDG instructions;
   3. kernels vs plain — each kernel's wrapper on the card at ragged shapes
      and the training path's shapes against its plain PyTorch version
      (atol/rtol 1e-5: the kernels sum in their own order; gather_rows
@@ -24,10 +25,14 @@ non-zero exit and no result line):
      stacked_attn_dh) in both operand variants — R-GAT's (eb, slope 0.2,
      values shared with the logits projection, a per-slot qv) and HGT's
      (separate values, pe/pv transforms) — with and without residuals, at
-     f in {1, 3, 16, 64, 100}, ragged n and d_in (789), fully masked rows
-     and shared stack rows; relation_agg (the dict-form R-GCN aggregation)
-     at the reference's AGG_SHAPES, the raf path's shapes and an all-masked
-     case; stacked_softmax_combine (the unfused attention epilogue) at the
+     f in {1, 3, 16, 64, 100}, ragged n and d_in (789), H from 16 to 72,
+     fully masked rows and shared stack rows, and the epilogue at the fanout
+     limits it promises (HGT f = 392, R-GAT f = 792 at H = 64, nh = 4);
+     gather_rows exactly at d in {1, 3, 4, 63, 64, 65, 128, 200} x n in {1,
+     7, 874, 100000} with int32 and int64 indices, each also into an output
+     4 bytes off the 16-byte grid; relation_agg (the dict-form R-GCN
+     aggregation) at the reference's AGG_SHAPES, the raf path's shapes and
+     an all-masked case; stacked_softmax_combine (the unfused attention epilogue) at the
      reference's cases, f in {16, 64, 100}, ragged n and H beyond 256;
      stacked_mean_linear and stacked_mean_linear_dh also at 108 ragged shapes
      each (n in {1, 1000, 4097}, d_in in {33, 100, 128, 789}, d_out in {1,
@@ -70,16 +75,22 @@ non-zero exit and no result line):
      HGT (6b) must launch stacked_attn_epilogue with no residuals only.
      Every answer is held against the store's rows and a plain
      relu(e) @ w + b; the servers must answer with no retry, no breaker
-     trip and no degraded answer;
+     trip and no degraded answer, and after each run the cache's
+     consistency_check (paper §6's non-replicative invariant: unique slots,
+     the mod-hash shard rule) must hold;
   7. kernels at the main paths' shapes — each kernel against its plain
      version at every shape any path launched it with (gather_rows at the
      rows of the table each fetch read); at the two most launched shapes of
      each path, the error against the plain version, kernel time (CUDA
      events over raw launches, inputs rotated through more than the 50 MB
      L2), the plain version's time, the library call's time where one
-     PyTorch call computes the same function (kernels 1, 2, 5 and 8 also as
-     one CUDA graph of the same calls, which leaves out the host's launch
-     cost: ``graph_ms``, ``plain_graph_ms``, ``library_graph_ms``), and the least
+     PyTorch call computes the same function (kernels 1, 2, 4, 5, 7 and 8
+     also as one CUDA graph of the same calls, which leaves out the host's
+     launch cost: ``graph_ms``, ``plain_graph_ms``, ``library_graph_ms``;
+     stacked_attn_epilogue, which no one call computes, also its
+     ``projection_library_ms``: its projections alone as one torch.bmm
+     against the slot-gathered weights, a yardstick that computes less than
+     the kernel), and the least
      time the card could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32
      without tensor cores); relation_agg and stacked_softmax_combine at every shape their
      paths launched; at f = 1 the library call of stacked_mean_linear
@@ -170,6 +181,8 @@ def card_line() -> str:
 REDESIGNED = {"stacked_mean_linear": "stacked_mean_linear_kernel",
               "stacked_mean_linear_dh": "stacked_mean_linear_dh_kernel",
               "stacked_attn_dh": "stacked_attn_dh_kernel",
+              "stacked_attn_epilogue": "stacked_attn_epilogue_kernel",
+              "gather_rows": "gather_rows_kernel",
               "flash_attention": "flash_attention_wgmma_kernel"}
 
 
@@ -237,7 +250,7 @@ def time_ms(fn, arg_sets, iters: int = 50, graph: bool = False) -> float:
     through ``arg_sets`` (rotated so the working set exceeds L2), timed
     with CUDA events after a warm-up pass.  ``graph``: the calls are
     captured once into a CUDA graph and the replay is timed, which leaves
-    out the host's launch cost (10-20 us for a raw launch through ctypes,
+    out the host's launch cost (5-20 us for a raw launch through ctypes,
     more than a small kernel takes on the card)."""
     import torch
 
@@ -327,11 +340,14 @@ def check_mean_linear(shape, seed, device, masked_rows=False) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def check_gather(shape, seed, device, idx_dtype="int64") -> float:
+def check_gather(shape, seed, device, idx_dtype="int64", misaligned=False) -> float:
+    """gather_rows against table[idx], exactly; ``misaligned`` also launches
+    it raw into an output whose base is 4 bytes off the 16-byte grid (the
+    kernel's 4-byte path)."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
+    from repro_torch.kernels.gather_rows.ops import gather_rows, gather_rows_ref, launch_kernel
 
     rows, d, n = shape
     r = np.random.default_rng(seed)
@@ -339,8 +355,13 @@ def check_gather(shape, seed, device, idx_dtype="int64") -> float:
     idx = r.integers(0, rows, n).astype(idx_dtype)
     got = gather_rows(table, idx)
     ref = gather_rows_ref(table, torch.from_numpy(idx))
+    if misaligned:
+        off = torch.empty(n * d + 1, dtype=torch.float32, device=device)[1:].view(n, d)
+        launch_kernel(table, torch.from_numpy(idx).to(device), off)
     torch.cuda.synchronize()
     check(bool(torch.equal(got, ref)), f"gather_rows {shape}: differs from table[idx]")
+    check(not misaligned or bool(torch.equal(off, ref)),
+          f"gather_rows {shape}: the unaligned output differs from table[idx]")
     return 0.0
 
 
@@ -388,19 +409,23 @@ def time_gather(shape, device):
     sets, raw, lib = [], [], []
     for i in range(copies_to_exceed_l2(rows * d * 4)):
         table = torch.from_numpy(r.standard_normal((rows, d)).astype(np.float32)).to(device)
-        idx = r.integers(0, rows, n).astype(np.int64)
-        idx_dev = torch.from_numpy(idx).to(device)
+        idx_dev = torch.from_numpy(r.integers(0, rows, n).astype(np.int64)).to(device)
         out = torch.empty((n, d), dtype=torch.float32, device=device)
-        sets.append((table, torch.from_numpy(idx)))
+        # the plain version on the same device indices (a host index would
+        # add its copy, and cannot be captured)
+        sets.append((table, idx_dev))
         raw.append((table, idx_dev, out))
         lib.append((table, 0, idx_dev))
     ms = time_ms(gr.launch_kernel, raw)
     plain_ms = time_ms(gr.gather_rows_ref, sets)
     library_ms = time_ms(torch.index_select, lib)
+    graph = dict(graph_ms=time_ms(gr.launch_kernel, raw, graph=True),
+                 plain_graph_ms=time_ms(gr.gather_rows_ref, sets, graph=True),
+                 library_graph_ms=time_ms(torch.index_select, lib, graph=True))
     nbytes = 2 * n * d * 4 + n * 8
     bound_ms, bound_by = bound(nbytes, 0)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, bytes=nbytes, flops=0)
+                library_ms=library_ms, bytes=nbytes, flops=0, **graph)
 
 
 def dh_inputs(shape, seed, device, masked_rows=False):
@@ -622,12 +647,10 @@ def time_attn(shape, device):
 
     rb, n, f, di, nh, dh = shape[:6]
     H = nh * dh
-    two, post = bool(shape[7]), bool(shape[8])
+    two = bool(shape[7])
     sets = [attn_inputs(shape, 400 + i, device)
             for i in range(copies_to_exceed_l2(rb * n * f * di * 4))]
-    _, bo, bc = sra.DEFAULT_BLOCKS["stacked_attn_epilogue"]
-    rows = sra.attn_rows(f, nh, dh, two, post)
-    raw, plain = [], []
+    raw, plain, proj = [], [], []
     for h, mask, ops, us, kw in sets:
         out = torch.empty((rb, n, H), dtype=torch.float32, device=device)
         z0 = v0 = None
@@ -635,16 +658,25 @@ def time_attn(shape, device):
             z0 = torch.empty((rb, n, f, H), dtype=torch.float32, device=device)
             v0 = torch.empty_like(z0) if two else None
         raw.append((h, mask.view(torch.uint8), ops["qv"], ops["eb"], ops["we"], ops["wv"],
-                    ops["pe"], ops["pv"], us, out, z0, v0, nh, dh, kw["scale"], kw["slope"],
-                    rows, bc))
+                    ops["pe"], ops["pv"], us, out, z0, v0, nh, dh, kw["scale"], kw["slope"]))
         plain.append((h, mask, ops["qv"], ops["eb"], ops["we"], ops["wv"], ops["pe"],
                       ops["pv"], us, nh, dh, kw["scale"], kw["slope"], kw["with_residuals"]))
+        # the projection yardstick: z0 (and v0 beside it along H) as one
+        # torch.bmm against the slot-gathered weights, gathered beforehand
+        u = us.long()
+        w = ops["we"][u[0]] if not two else torch.cat([ops["we"][u[0]], ops["wv"][u[1]]], 2)
+        proj.append((h.reshape(rb, n * f, di), w.contiguous()))
     ms = time_ms(sra.launch_attn_epilogue, raw)
     plain_ms = time_ms(sra.stacked_attn_epilogue_ref, plain)
+    graph = dict(graph_ms=time_ms(sra.launch_attn_epilogue, raw, graph=True),
+                 plain_graph_ms=time_ms(sra.stacked_attn_epilogue_ref, plain, graph=True),
+                 library_graph_ms=None)
     nbytes, flops = attn_work(shape)
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, bytes=nbytes, flops=flops)
+                library_ms=None, bytes=nbytes, flops=flops, **graph,
+                projection_library_ms=time_ms(torch.bmm, proj),
+                projection_library_graph_ms=time_ms(torch.bmm, proj, graph=True))
 
 
 def time_attn_dh(shape, device):
@@ -1219,13 +1251,16 @@ def drive_server(name, server, store, n_target, seed, requests=512):
     check(stats.degraded == 0 and stats.retries == 0 and stats.breaker_trips == 0,
           f"{name}: degraded={stats.degraded} retries={stats.retries} "
           f"breaker_trips={stats.breaker_trips}; the device path failed")
+    check(server.cache.consistency_check(),
+          f"{name}: the cache broke the non-replicative invariant (duplicate slots or a "
+          "shard off the mod-hash rule)")
     log(f"  {name}: {stats.count} requests in {wall:.3f} s wall, "
         f"{stats.flushes} flushes, p50={stats.p50_ms:.3f} ms p99={stats.p99_ms:.3f} ms "
         f"qps={stats.qps:.1f}; hit rates "
         + ", ".join(f"{t}={r:.4f}" for t, r in sorted(stats.hit_rates.items())))
     return dict(count=stats.count, flushes=stats.flushes, wall_s=wall,
                 p50_ms=stats.p50_ms, p99_ms=stats.p99_ms, qps=stats.qps,
-                hit_rates=stats.hit_rates)
+                hit_rates=stats.hit_rates, consistency_check=True)
 
 
 def launch_counts():
@@ -1698,9 +1733,13 @@ def kernel_table(paths: dict, errs: dict, device):
                     log("      as one CUDA graph (no host launch cost): " + ", ".join(
                         f"{k} {'none' if t[k] is None else f'{t[k]:.4f} ms'}"
                         for k in ("graph_ms", "plain_graph_ms", "library_graph_ms")))
+                if "projection_library_ms" in t:
+                    log(f"      yardstick computing less than the kernel (its projections "
+                        f"alone, one torch.bmm): {t['projection_library_ms']:.4f} ms, as a "
+                        f"graph {t['projection_library_graph_ms']:.4f} ms")
         main = next(timed[p]["timed"][0] for p in paths if timed[p]["timed"])
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "graph_ms",
-                "plain_graph_ms", "library_graph_ms")
+                "plain_graph_ms", "library_graph_ms", "projection_library_ms")
         entries.append({
             "name": name, "route": info.route, "source": info.source,
             "replaces": info.replaces,
@@ -1725,6 +1764,18 @@ ATTN_RAGGED = [(5, 19, 4, 23, 4, 8, 3), (4, 33, 1, 789, 4, 16, 3), (3, 130, 3, 1
                (2, 7, 16, 37, 2, 8, 2), (3, 45, 64, 100, 4, 16, 2), (2, 9, 100, 33, 4, 16, 2),
                (3, 50, 5, 70, 3, 24, 2), (6, 4096, 3, 128, 4, 16, 6),
                (2, 1024, 16, 128, 4, 16, 2)]
+
+
+# the attention epilogue at the fanout limits it promises (H = 64, nh = 4):
+# one row of 392 neighbours for HGT, of 792 for R-GAT (the lean layout)
+ATTN_LIMITS = [(2, 5, 392, 128, 4, 16, 2, "hgt"), (2, 5, 792, 128, 4, 16, 2, "rgat")]
+# kernel 7's sweep ((rows, d, n), index type): d in {1, 3, 4, 63, 64, 65,
+# 128, 200} x n in {1, 7, 874, 100000}, int32 and int64 indices in turn;
+# each also into an output 4 bytes off the 16-byte grid
+GATHER_SWEEP = [((5000, d, n), ("int32", "int64")[(i + j) % 2])
+                for i, d in enumerate((1, 3, 4, 63, 64, 65, 128, 200))
+                for j, n in enumerate((1, 7, 874, 100000))]
+GATHER_SWEEP += [(shape, "int64" if dt == "int32" else "int32") for shape, dt in GATHER_SWEEP]
 
 
 # kernel 2's ragged shapes (rb, n, f, d_in, d_out, U): n in {1, 1000, 4097},
@@ -1845,9 +1896,8 @@ def main(argv=None) -> int:
                                                             masked_rows=True))
     for i, shape in enumerate(ADH_RAGGED):
         errs["stacked_attn_dh"] = max(errs["stacked_attn_dh"], check_attn_dh(shape, 900 + i, DEVICE))
-    for i, (shape, dt) in enumerate([((50, 37, 9), "int32"), ((5, 1, 3), "int64"),
-                                     ((1000, 64, 256), "int64")]):
-        check_gather(shape, i, DEVICE, dt)
+    for i, (shape, dt) in enumerate(GATHER_SWEEP):
+        check_gather(shape, i, DEVICE, dt, misaligned=True)
     for i, (rb, n, f, di, nh, dh, U) in enumerate(ATTN_RAGGED):
         for variant in ("rgat", "hgt"):
             for with_res in (False, True):
@@ -1857,6 +1907,12 @@ def main(argv=None) -> int:
             dshape = (rb, n, f, di, nh * dh, U, 0 if variant == "rgat" else U)
             errs["stacked_attn_dh"] = max(errs["stacked_attn_dh"],
                                           check_attn_dh(dshape, i, DEVICE))
+    for i, (rb, n, f, di, nh, dh, U, variant) in enumerate(ATTN_LIMITS):
+        for with_res in (False, True):
+            errs["stacked_attn_epilogue"] = max(
+                errs["stacked_attn_epilogue"],
+                check_attn(attn_shape(rb, n, f, di, nh, dh, U, variant, with_res), 50 + i,
+                           DEVICE))
     # kernel 6 at the reference's AGG_SHAPES, the raf path's shapes and an
     # all-masked case; kernel 3 at the reference's cases, f in {16, 64, 100},
     # ragged n and the training and serving paths' shapes

@@ -281,7 +281,8 @@ class KernelConfig:
     ``block_in`` are the reference's fields, validated and kept so that
     configurations round-trip between the packages, but no CUDA launch
     reads them: every kernel of the port has a fixed tile (kernels 1 and 5
-    pick their rows per block from the shape).  There is no tuning table,
+    pick their rows per block from the shape, kernel 4 from the fanout).
+    There is no tuning table,
     so ``autotune=True`` raises
     (``repro_torch.kernels.ops.refuse_autotune``).
     """

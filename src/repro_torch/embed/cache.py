@@ -27,7 +27,8 @@ their row-aligned Adam states (hits from the device copy, misses from the
 host), and ``write_learnable`` writes the updated triple back to its single
 authoritative copy — device rows in place, host rows on the host.
 ``merged_learnable_state`` / ``residency`` / ``set_residency`` serve the
-session's checkpoints.
+session's checkpoints, and ``consistency_check`` verifies the
+non-replicative invariant (unique slots, the mod-hash shard rule).
 """
 
 from __future__ import annotations
@@ -470,3 +471,14 @@ class FeatureCache:
                 rb = row_bytes(penalties.dims[t], penalties.learnable[t], bytes_per_elem)
                 t_total += c.misses * penalties.ratios[t] * rb
         return t_total
+
+    def consistency_check(self) -> bool:
+        """Non-replicative invariant: a cached row's host copy is never read
+        or written — verify slots are unique and shard assignment follows the
+        mod-hash rule (paper §6)."""
+        for c in self.caches.values():
+            if len(np.unique(c.ids)) != len(c.ids):
+                return False
+            if not np.array_equal(c.shard_of, c.ids % self.num_shards):
+                return False
+        return True

@@ -1,5 +1,6 @@
 // The fp32 register-tiled product core shared by stacked_mean_linear.cu,
-// stacked_mean_linear_dh.cu and stacked_attn_dh.cu, for sm_90a.
+// stacked_mean_linear_dh.cu, stacked_attn_dh.cu and stacked_attn_epilogue.cu,
+// for sm_90a.
 //
 // A block of 128 threads (4 warps) computes a tile of 16 * RM rows x 64
 // columns of C = A . B on the CUDA cores in full fp32.  Lane (ly, lx) =
@@ -25,6 +26,11 @@
 // The weight slice is staged once per block by cp.async when the depth is at
 // most kMaxKW (every path of the port); a deeper K is restaged in kMaxKW-deep
 // slices, one after the other.
+//
+// A block may hold several such groups of 128 threads (stacked_attn_epilogue.cu
+// runs HGT's two projections as two groups over one A chunk): a thread's
+// place in its tile is taken from threadIdx.x % kThreads, and the staging
+// helpers take the count NT of the threads that stage (default kThreads).
 //
 // Every output is summed over k in increasing order inside one thread, in
 // fp32 FMAs: no TF32, no tensor cores, no atomics, so a result is the same
@@ -94,7 +100,7 @@ inline size_t smem_bytes(int rm, int kw, size_t extra) {
 // this thread's first row and column in the block's tile
 template <int RM>
 __device__ __forceinline__ int tile_row() {
-  return (threadIdx.x / 32) * 4 * RM + (threadIdx.x % 32) / 8;
+  return (threadIdx.x % kThreads / 32) * 4 * RM + (threadIdx.x % 32) / 8;
 }
 __device__ __forceinline__ int tile_col() { return (threadIdx.x % 8) * 4; }
 
@@ -102,20 +108,20 @@ __device__ __forceinline__ int tile_col() { return (threadIdx.x % 8) * 4; }
 // by cp.async in a group of its own; out-of-range elements zero-filled by the
 // copy itself.  16-byte copies when `vec` (K % 4 == 0 and a 16-byte aligned
 // base), else 4-byte.
-template <int RM>
+template <int RM, int NT = kThreads>
 __device__ __forceinline__ void stage_a(float* a_s, const float* a, long long rows,
                                         long long row0, int K, int k0,
                                         int slot, bool vec) {
   constexpr int BM = 16 * RM;
   float* dst = a_s + slot * BM * kAP;
   if (vec) {
-    for (int e = threadIdx.x; e < BM * (kKC / 4); e += kThreads) {
+    for (int e = threadIdx.x; e < BM * (kKC / 4); e += NT) {
       const int r = e / (kKC / 4), c = (e % (kKC / 4)) * 4;
       const bool in = row0 + r < rows && k0 + c < K;
       cp_async16(dst + r * kAP + c, in ? a + (row0 + r) * K + k0 + c : a, in);
     }
   } else {
-    for (int e = threadIdx.x; e < BM * kKC; e += kThreads) {
+    for (int e = threadIdx.x; e < BM * kKC; e += NT) {
       const int r = e / kKC, c = e % kKC;
       const bool in = row0 + r < rows && k0 + c < K;
       cp_async4(dst + r * kAP + c, in ? a + (row0 + r) * K + k0 + c : a, in);
@@ -125,17 +131,20 @@ __device__ __forceinline__ void stage_a(float* a_s, const float* a, long long ro
 }
 
 // "nn" weight slice: rows k0 .. k0 + kw of w [K][ncols], columns col0 ..
-// col0 + 64, as w_s[k][c] (pitch kBN), by cp.async in a group of its own.
+// col0 + 64, as w_s[k][c] (pitch kBN), by cp.async in a group of its own,
+// staged by NT threads (threadIdx.x % NT: one group of a larger block may
+// stage a slice of its own).
+template <int NT = kThreads>
 __device__ __forceinline__ void stage_w_nn(float* w_s, const float* w, int K, int ncols,
                                            int col0, int k0, int kw, bool vec) {
   if (vec) {
-    for (int e = threadIdx.x; e < kw * (kBN / 4); e += kThreads) {
+    for (int e = threadIdx.x % NT; e < kw * (kBN / 4); e += NT) {
       const int k = e / (kBN / 4), c = (e % (kBN / 4)) * 4;
       const bool in = k0 + k < K && col0 + c < ncols;
       cp_async16(w_s + k * kBN + c, in ? w + (long long)(k0 + k) * ncols + col0 + c : w, in);
     }
   } else {
-    for (int e = threadIdx.x; e < kw * kBN; e += kThreads) {
+    for (int e = threadIdx.x % NT; e < kw * kBN; e += NT) {
       const int k = e / kBN, c = e % kBN;
       const bool in = k0 + k < K && col0 + c < ncols;
       cp_async4(w_s + k * kBN + c, in ? w + (long long)(k0 + k) * ncols + col0 + c : w, in);

@@ -13,10 +13,11 @@ live here:
     ``interpret=True`` is refused.
   * **launch block sizes** — none to choose: every kernel's tile is fixed
     in its source (kernels 1 and 5 pick their rows per block from the
-    shape in their C entry points).  ``KernelConfig.block_n/block_out/
-    block_in`` are the reference's config fields, validated and kept, but no
-    CUDA launch reads them; :func:`refuse_autotune` refuses
-    ``autotune=True``, since there is no tuning table.
+    shape in their C entry points, kernel 4 its rows per block from the
+    fanout).  ``KernelConfig.block_n/block_out/block_in`` are the
+    reference's config fields, validated and kept, but no CUDA launch reads
+    them; :func:`refuse_autotune` refuses ``autotune=True``, since there is
+    no tuning table.
   * **launch accounting** — each kernel registers a :class:`KernelInfo`
     in :data:`KERNELS`; its wrapper calls :meth:`KernelInfo.record` exactly
     where it launches the kernel, so a run can show which kernels its path
@@ -38,7 +39,6 @@ __all__ = [
     "KernelInfo",
     "KernelLaunchError",
     "KERNELS",
-    "DEFAULT_BLOCKS",
     "register_kernel",
     "reset_launch_counts",
     "kernel_choice",
@@ -47,16 +47,6 @@ __all__ = [
     "cuda_stream",
     "on_device",
 ]
-
-
-# The fixed launch sizes of csrc/stacked_attn_epilogue.cu (block_n,
-# block_out, block_in): block_n is the budget of (row, neighbour) pairs per
-# block, which holds max(1, block_n // f) destination rows; block_out the
-# 64-column pass of the projection; block_in the d_in chunk.  The kernels
-# on the fp32_tile.cuh core (1, 2, 5) take no sizes at all.
-DEFAULT_BLOCKS: Dict[str, Tuple[int, int, int]] = {
-    "stacked_attn_epilogue": (64, 64, 32),
-}
 
 
 class KernelLaunchError(RuntimeError):
@@ -122,15 +112,42 @@ def check_launch(status: int, name: str) -> None:
         raise KernelLaunchError(f"{name}: CUDA launch failed with cudaError_t {status}")
 
 
+# PyTorch's raw current-stream and current-device queries.  They are
+# private (checked against torch 2.11.0+cu128); a CPU-only build has
+# neither, so they are looked up here and asked for only by a launch.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_RAW_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def _raw_queries_missing() -> RuntimeError:
+    return RuntimeError(
+        f"torch {torch.__version__} lacks torch._C._cuda_getCurrentRawStream or "
+        f"torch._C._cuda_getDevice, the raw queries every CUDA launch of the port "
+        f"takes its stream and device from (checked against torch 2.11.0+cu128)")
+
+
 def cuda_stream(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device``: inside a
+    ``torch.cuda.graph`` capture, the capture stream.  Asked of PyTorch's
+    raw query, which builds no ``torch.cuda.Stream`` object: every ctypes
+    launch of the port passes through here, and at the port's launch-sized
+    shapes the host's launch path is most of a kernel's eager time."""
+    if _RAW_STREAM is None or _RAW_DEVICE is None:
+        raise _raw_queries_missing()
+    index = device.index
+    return _RAW_STREAM(_RAW_DEVICE() if index is None else index)
+
+
+_NO_SWITCH = contextlib.nullcontext()
 
 
 def on_device(device: torch.device):
     """The context a raw launch on ``device`` runs in: ``device`` made
     current, and nothing to do when it already is (the usual case), so a
-    launch costs the host no device switch."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
+    launch costs the host no device switch.  The caller's tensor lies on
+    ``device``, so CUDA is initialised and the raw device query suffices."""
+    if _RAW_DEVICE is None:
+        raise _raw_queries_missing()
+    if device.index is None or device.index == _RAW_DEVICE():
+        return _NO_SWITCH
     return torch.cuda.device(device)

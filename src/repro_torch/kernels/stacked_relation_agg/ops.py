@@ -71,7 +71,6 @@ import torch
 
 from repro_torch.core.relmod import leaky_relu, masked_softmax
 from repro_torch.kernels.ops import (
-    DEFAULT_BLOCKS,
     check_launch,
     cuda_stream,
     kernel_choice,
@@ -101,7 +100,7 @@ __all__ = [
     "stacked_softmax_combine_ref",
     "softmax_combine_forward",
     "attn_slots",
-    "attn_rows",
+    "attn_max_fanout",
     "take_slots",
     "launch_attn_epilogue",
     "launch_attn_dh",
@@ -148,9 +147,9 @@ _ADH_FN = None
 _THREADS = 256
 # must match csrc/fp32_tile.cuh: the columns of a block of kernels 1, 2, 5
 _TILE_COLS = 64
-# must match csrc/stacked_attn_epilogue.cu: the fixed 64 x 64 tile, the
-# largest d_in chunk, and the opt-in shared memory of one block on sm_90
-_ATTN_TILE, _ATTN_MAX_CHUNK, _SMEM_LIMIT = 64, 64, 232448
+# must match csrc/stacked_attn_epilogue.cu: the opt-in shared memory of one
+# block on sm_90, which its fanout limit is stated against
+_SMEM_LIMIT = 232448
 
 
 def _host_slots(slot_u, num_rows: int) -> np.ndarray:
@@ -477,22 +476,18 @@ def attn_slots(ue, uv, ua, rows: Tuple[int, int, int], rb: int, device) -> torch
                         for u, U in zip((ue, uv, ua), rows)])
 
 
-def attn_rows(f: int, num_heads: int, head_dim: int, two: bool, post: bool) -> int:
-    """Destination rows per block of the epilogue kernel: ``block_n // f``
-    (at least 1), shrunk until the block's shared memory fits; raises
-    :class:`FanoutTooWideError` when not even one row fits.  ``two``: the
-    values have their own projection; ``post``: pe/pv transforms."""
-    bn, _, bc = DEFAULT_BLOCKS["stacked_attn_epilogue"]
-    H, k = num_heads * head_dim, 2 if two else 1
-    fixed = _ATTN_TILE * (bc + 1) + bc * _ATTN_TILE * k
-    per_row = f * (H * k + num_heads) + H * (2 if post else 1)
-    fit = (_SMEM_LIMIT // 4 - fixed) // per_row
-    if fit < 1:
-        raise FanoutTooWideError(
-            f"stacked_attn_epilogue: a row of fanout {f} at {num_heads} heads x "
-            f"{head_dim} needs {4 * (fixed + per_row)} bytes of shared memory, "
-            f"over the {_SMEM_LIMIT} one block can hold")
-    return max(1, min(bn // f, fit))
+def attn_max_fanout(num_heads: int, head_dim: int, two: bool, post: bool) -> int:
+    """The widest row ``csrc/stacked_attn_epilogue.cu`` takes: the largest f
+    with ``4 * (f * (H * (1 + two) + nh) + H * (1 + post) + 64 * 33 + 32 * 64
+    * (1 + two))`` bytes within one block's shared memory (its first
+    version's arithmetic, kept as the contract): 392 for HGT and 792 for
+    R-GAT at 4 heads x 16.  ``two``: the values have their own projection;
+    ``post``: pe/pv transforms.  How many rows a block holds is the C entry
+    point's choice alone.  At H near 1000 its lean layout binds first and
+    the entry point also refuses some f within this limit (the launch then
+    raises :class:`~repro_torch.kernels.ops.KernelLaunchError`)."""
+    H, k, q = num_heads * head_dim, 2 if two else 1, 2 if post else 1
+    return (_SMEM_LIMIT // 4 - H * q - 64 * 33 - 32 * 64 * k) // (H * k + num_heads)
 
 
 def stacked_attn_epilogue_ref(h, mask, qv, eb, we, wv, pe, pv, us, num_heads: int,
@@ -552,7 +547,7 @@ def _ae_kernel():
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
                        + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
                        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _AE_FN = fn
     return _AE_FN
@@ -575,7 +570,7 @@ def _ptr(t) -> Optional[int]:
 
 
 def launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0, v0,
-                         num_heads, head_dim, scale, slope, rows, block_in) -> None:
+                         num_heads, head_dim, scale, slope) -> None:
     """One raw epilogue launch on operands already checked and on ``h``'s
     device (outputs allocated; ``z0``/``v0`` None without residuals).  Not
     counted: production calls go through :func:`attn_epilogue_forward`."""
@@ -586,7 +581,7 @@ def launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0, v0,
             _ptr(eb), we.data_ptr(), _ptr(wv), _ptr(pe), _ptr(pv), us.data_ptr(),
             out.data_ptr(), _ptr(z0), _ptr(v0), rb, n, f, d_in, num_heads, head_dim,
             float(scale), 0.0 if slope is None else float(slope), int(slope is not None),
-            rows, block_in, cuda_stream(h.device))
+            cuda_stream(h.device))
     check_launch(status, "stacked_attn_epilogue")
 
 
@@ -651,11 +646,6 @@ def attn_epilogue_forward(h, mask, qv, eb, we, wv, pe, pv, us, *, num_heads: int
     if qv.device != h.device or qv.dtype != torch.float32 or qv.stride(2) != 1:
         raise ValueError(f"{op}: qv must be float32 on {h.device} with unit stride along "
                          f"H, got {qv.dtype} on {qv.device}, strides {qv.stride()}")
-    bn, bo, bc = DEFAULT_BLOCKS[op]
-    if bo != _ATTN_TILE or not 1 <= bc <= _ATTN_MAX_CHUNK:
-        raise ValueError(f"{op}: blocks {(bn, bo, bc)}: block_out must be "
-                         f"{_ATTN_TILE} and block_in in [1, {_ATTN_MAX_CHUNK}]")
-    rows = attn_rows(f, nh, dh, wv is not None, post)
     if rb > 65535:
         raise ValueError(f"{op}: {rb} slots exceed the grid's 65535")
     out = torch.empty((rb, n, H), dtype=torch.float32, device=h.device)
@@ -667,8 +657,13 @@ def attn_epilogue_forward(h, mask, qv, eb, we, wv, pe, pv, us, *, num_heads: int
         return (out, z0, v0) if with_residuals else out
     if f == 0 or d_in == 0:
         raise ValueError(f"{op}: f = {f} and d_in = {d_in} must be positive")
+    limit = attn_max_fanout(nh, dh, wv is not None, post)
+    if f > limit:
+        raise FanoutTooWideError(
+            f"{op}: a row of fanout {f} at {nh} heads x {dh} does not fit the shared "
+            f"memory of one block; the kernel takes f <= {limit}")
     launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0,
-                         None if wv is None else v0, nh, dh, scale, slope, rows, bc)
+                         None if wv is None else v0, nh, dh, scale, slope)
     INFO_AE.record((rb, n, f, d_in, nh, dh, we.shape[0],
                     0 if wv is None else wv.shape[0], pe.shape[0] if post else 0,
                     eb is not None, slope is not None, qv.stride(1) == 0,

@@ -304,7 +304,8 @@ def infer_all(
     max in-degree would blow the block budget) on ``device`` (``None``: the
     GPU, or :class:`~repro_torch.device.NoGPUError` without one).  On the
     GPU an attention model's group fanout must fit one row of the epilogue
-    kernel's shared memory (f <= 392 for HGT at hidden 64, 4 heads), else
+    kernel's shared memory (f <= 392 for HGT and f <= 792 for R-GAT at
+    hidden 64, 4 heads), else
     :class:`~repro_torch.kernels.stacked_relation_agg.FanoutTooWideError`;
     cap the graph's in-degree (:func:`bounded_graph`) beyond that."""
     if shm:

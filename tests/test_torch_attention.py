@@ -42,7 +42,7 @@ from repro_torch.kernels.stacked_relation_agg import (
     stacked_attn_epilogue_ref,
     take_slots,
 )
-from repro_torch.kernels.stacked_relation_agg.ops import attn_rows
+from repro_torch.kernels.stacked_relation_agg.ops import attn_max_fanout
 
 FWD = dict(atol=1e-5, rtol=1e-5)
 GRAD = dict(atol=2e-5, rtol=1e-5)
@@ -123,6 +123,30 @@ def test_block_fields_change_no_attention_result(model):
     for leaf, g in plain[1].items():
         np.testing.assert_array_equal(sized[1][leaf], g, err_msg=leaf)
     np.testing.assert_array_equal(sized[2], plain[2])
+
+
+@pytest.mark.parametrize("fields", [dict(block_n=64), dict(block_out=64, block_in=64),
+                                    dict(block_n=1, block_out=1, block_in=1),
+                                    dict(block_n=512, block_out=512, block_in=512)],
+                         ids=["n", "out-in", "ones", "large"])
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("model", ["rgat", "hgt"])
+def test_block_fields_change_no_attention_output_or_gradient(model, fuse, fields):
+    """No kernels.block_* setting reaches the epilogue (whose tile is fixed
+    in its source, rows per block from the fanout alone): R-GAT's and HGT's
+    outputs and the gradients of every stack, of h and of q are the ones
+    without the fields, bit for bit, fused and unfused."""
+    mod, stacks, slot_u, h, q, mask = _module_case(model, 4, 11, 16, seed=7)
+    res = []
+    for opts in (KernelConfig(fuse_epilogue=fuse), KernelConfig(fuse_epilogue=fuse, **fields)):
+        ts = {k: torch.from_numpy(v).requires_grad_(True) for k, v in stacks.items()}
+        th, tq = (torch.from_numpy(a).requires_grad_(True) for a in (h, q))
+        out = stacked_agg(get_relation_module(model), ts, slot_u, th, tq,
+                          torch.from_numpy(mask), opts=opts)
+        res.append([out.detach()] + list(torch.autograd.grad((out ** 2).sum(),
+                                                             [*ts.values(), th, tq])))
+    for name, a, b in zip(["out", *stacks, "h", "q"], *res):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("model", ["rgat", "hgt"])
@@ -283,17 +307,26 @@ def test_take_slots_backward_is_the_slot_sum():
 
 
 def test_attn_rows_shrink_with_fanout_and_refuse_what_cannot_fit():
-    assert attn_rows(3, 4, 16, two=False, post=False) == 21
-    assert attn_rows(16, 4, 16, two=True, post=True) == 4
-    assert attn_rows(100, 4, 16, two=True, post=True) == 1
-    assert attn_rows(392, 4, 16, two=True, post=True) == 1
-    with pytest.raises(FanoutTooWideError, match="fanout 393"):
-        attn_rows(393, 4, 16, two=True, post=True)
-    assert attn_rows(792, 4, 16, two=False, post=False) == 1
-    with pytest.raises(FanoutTooWideError):
-        attn_rows(793, 4, 16, two=False, post=False)
-    # fewer rows than the pair budget allows when shared memory binds
-    assert attn_rows(16, 8, 64, two=True, post=True) == 2
+    """The widest row the attention epilogue takes, whose shared memory
+    decides FanoutTooWideError.  The rows per block shrink with f in the C
+    entry point's layout alone (checked on the card:
+    tests/test_torch_cuda.py::test_cuda_attn_rows_shrink_with_fanout)."""
+    # the fanout limits stay the first version's: 392 for HGT, 792 for R-GAT
+    # at 4 heads x 16
+    assert attn_max_fanout(4, 16, two=True, post=True) == 392
+    assert attn_max_fanout(4, 16, two=False, post=False) == 792
+    # a wider H or a second projection leaves room for fewer neighbours
+    assert attn_max_fanout(4, 16, two=True, post=False) == 392
+    assert attn_max_fanout(4, 16, two=False, post=True) == 791
+    assert attn_max_fanout(8, 64, two=True, post=True) == 49
+    assert attn_max_fanout(2, 4, two=True, post=True) == 2882
+    # the limit is the first version's arithmetic, 4 * floats <= 227 KB
+    for nh, dh, two, post in ((4, 16, True, True), (4, 16, False, False), (3, 24, True, True),
+                              (8, 64, False, False), (1, 1000, False, False)):
+        H, k, q = nh * dh, 1 + two, 1 + post
+        need = lambda f: 4 * (f * (H * k + nh) + H * q + 64 * 33 + 32 * 64 * k)  # noqa: E731
+        f = attn_max_fanout(nh, dh, two, post)
+        assert need(f) <= 232448 < need(f + 1), (nh, dh, two, post)
 
 
 def test_attention_ops_refuse_bad_operands():

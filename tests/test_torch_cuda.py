@@ -108,6 +108,57 @@ def test_cuda_gather_rows_matches_plain(cuda_device, rows, d, n, idx_dtype):
                                   gather_rows_ref(table, torch.from_numpy(idx)).cpu().numpy())
 
 
+# kernel 7's sweep: d (the parametrization) x n in {1, 7, 874, 100000} x
+# int32 / int64 indices, also into an output 4 bytes off the 16-byte grid
+GATHER_D = (1, 3, 4, 63, 64, 65, 128, 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", GATHER_D)
+def test_cuda_gather_rows_sweep_is_exact(cuda_device, d):
+    from repro_torch.kernels.gather_rows.ops import launch_kernel
+
+    for n in (1, 7, 874, 100000):
+        for idx_dtype in (np.int32, np.int64):
+            r = np.random.default_rng(d * n)
+            table = torch.from_numpy(r.standard_normal((5000, d)).astype(np.float32)).to(
+                cuda_device)
+            idx = r.integers(0, 5000, n).astype(idx_dtype)
+            want = gather_rows_ref(table, torch.from_numpy(idx))
+            got = gather_rows(table, idx)
+            off = torch.empty(n * d + 1, device=cuda_device)[1:].view(n, d)
+            launch_kernel(table, torch.from_numpy(idx).to(cuda_device), off)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (n, idx_dtype)
+            assert torch.equal(off, want), (n, idx_dtype, "unaligned out")
+
+
+@pytest.mark.cuda
+def test_cuda_stream_is_the_capture_stream_under_graph_capture(cuda_device):
+    """Every ctypes launch takes its stream from kops.cuda_stream: the
+    current stream, and inside torch.cuda.graph the capture stream, so a
+    captured launch lands in the graph (and replays the gather)."""
+    assert kops.cuda_stream(cuda_device) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert kops.cuda_stream(cuda_device) == side.cuda_stream
+    table = torch.arange(40, dtype=torch.float32, device=cuda_device).reshape(10, 4)
+    idx = torch.tensor([3, 1, 3], device=cuda_device)
+    out = torch.zeros((3, 4), device=cuda_device)
+    from repro_torch.kernels.gather_rows.ops import launch_kernel
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        inside = kops.cuda_stream(cuda_device)
+        capture = torch.cuda.current_stream().cuda_stream
+        launch_kernel(table, idx, out)
+    assert inside == capture != torch.cuda.default_stream().cuda_stream
+    assert not bool(out.any())  # captured, not run
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, table[idx])
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
     h = torch.zeros((2, 3, 4, 5), device=cuda_device)
@@ -130,6 +181,28 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         gather_rows(torch.zeros((4, 3), device=cuda_device), torch.zeros(1, dtype=torch.long,
                                                                           device=cuda_device))
+    # the gather's positions are 32-bit: an output of 2^32 - 256 floats or
+    # more is refused before any launch (a stride-0 view stands in for it)
+    from repro_torch.kernels.gather_rows.ops import launch_kernel
+
+    wide = torch.zeros((1, 1 << 20), device=cuda_device)
+    for n in (4096, 4097):
+        big = torch.empty(1, device=cuda_device).expand(n, 1 << 20)
+        with pytest.raises(kops.KernelLaunchError):
+            launch_kernel(wide, torch.zeros(n, dtype=torch.int32, device=cuda_device), big)
+    # the attention epilogue's tile is fixed in its source: its raw launch
+    # takes no rows per block and no d_in chunk
+    h4, mask4, ops4, us4, kw4 = _attn_case(2, 5, 3, 6, 2, 4, 2, "hgt", 0, cuda_device)
+    out4 = torch.empty((2, 5, 8), device=cuda_device)
+    raw = (h4, mask4.view(torch.uint8), ops4["qv"], None, ops4["we"], ops4["wv"], ops4["pe"],
+           ops4["pv"], us4, out4, None, None, 2, 4, kw4["scale"], None)
+    for extra in (dict(rows=1), dict(block_in=32), dict(rows=1, block_in=32)):
+        with pytest.raises(TypeError):
+            sra.launch_attn_epilogue(*raw, **extra)
+    sra.launch_attn_epilogue(*raw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out4.cpu().numpy(), stacked_attn_epilogue_ref(
+        h4, mask4, **ops4, us=us4, num_heads=2, head_dim=4, **kw4).cpu().numpy(), **TOL)
 
 
 # (rb, n, f, d_in, d_out, U) of the backward: the ragged shapes above and
@@ -371,6 +444,92 @@ def test_cuda_attn_epilogue_matches_plain(cuda_device, shape, variant, with_res)
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL, err_msg=name)
     if with_res and variant == "rgat":
         assert got[2] is got[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_res", [False, True], ids=["out", "residuals"])
+@pytest.mark.parametrize("variant,f", [("hgt", 392), ("rgat", 792)])
+def test_cuda_attn_epilogue_at_the_fanout_limits(cuda_device, variant, f, with_res):
+    """The widest rows the kernel promises at H = 64, nh = 4 (the lean
+    layout: one row a block, 16-pair passes) match the plain version; one
+    neighbour more raises FanoutTooWideError before any launch."""
+    h, mask, ops, us, kw = _attn_case(2, 5, f, 128, 4, 16, 2, variant, f, cuda_device)
+    got = attn_epilogue_forward(h, mask, **ops, us=us, num_heads=4, head_dim=16,
+                                with_residuals=with_res, **kw)
+    want = stacked_attn_epilogue_ref(h, mask, **ops, us=us, num_heads=4, head_dim=16,
+                                     with_residuals=with_res, **kw)
+    torch.cuda.synchronize()
+    got, want = (got, want) if with_res else ((got,), (want,))
+    for name, a, b in zip(("out", "z0", "v0"), got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL, err_msg=name)
+    h2, mask2, ops2, us2, kw2 = _attn_case(1, 1, f + 1, 128, 4, 16, 2, variant, 0, cuda_device)
+    before = kops.KERNELS["stacked_attn_epilogue"].launches
+    with pytest.raises(FanoutTooWideError, match=f"fanout {f + 1}"):
+        attn_epilogue_forward(h2, mask2, **ops2, us=us2, num_heads=4, head_dim=16, **kw2)
+    assert kops.KERNELS["stacked_attn_epilogue"].launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["rgat", "hgt"])
+@pytest.mark.parametrize("nh,dh", [(1, 16), (3, 8), (5, 8), (2, 20), (3, 24), (8, 16)])
+def test_cuda_attn_epilogue_ragged_heads_match_plain(cuda_device, variant, nh, dh):
+    """H = 16 to 128, H not a multiple of 64 (column passes with a ragged
+    last one) and H > 64, at ragged n, f and d_in, with residuals."""
+    for n, f, di in ((37, 3, 70), (9, 16, 128), (5, 70, 33)):
+        h, mask, ops, us, kw = _attn_case(3, n, f, di, nh, dh, 2, variant, nh * dh + f,
+                                          cuda_device)
+        got = attn_epilogue_forward(h, mask, **ops, us=us, num_heads=nh, head_dim=dh,
+                                    with_residuals=True, **kw)
+        want = stacked_attn_epilogue_ref(h, mask, **ops, us=us, num_heads=nh, head_dim=dh,
+                                         with_residuals=True, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "z0", "v0"), got, want):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL,
+                                       err_msg=f"{name} n={n} f={f} d_in={di}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_res", [False, True], ids=["out", "residuals"])
+@pytest.mark.parametrize("variant", ["rgat", "hgt"])
+def test_cuda_attn_epilogue_is_the_same_bit_for_bit(cuda_device, variant, with_res):
+    """No atomics: two launches at the serving block and at the training
+    leaf agree bit for bit, outputs and residuals."""
+    for shape in ((2, 1024, 16, 128, 4, 16, 2), (6, 4096, 3, 128, 4, 16, 6)):
+        h, mask, ops, us, kw = _attn_case(*shape, variant, 9, cuda_device)
+        a, b = (attn_epilogue_forward(h, mask, **ops, us=us, num_heads=4, head_dim=16,
+                                      with_residuals=with_res, **kw) for _ in range(2))
+        a, b = (a, b) if with_res else ((a,), (b,))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), shape
+
+
+@pytest.mark.cuda
+def test_cuda_attn_rows_shrink_with_fanout(cuda_device):
+    """The rows per block the C entry point's layout takes (exported as
+    stacked_attn_epilogue_rows): 64 // f whole rows in the fixed 64-pair
+    tile, one row in the lean layout where the tile's shared memory binds,
+    and 0 (refused) exactly past the wrapper's attn_max_fanout."""
+    import ctypes
+
+    from repro_torch.kernels.build import load
+
+    fn = load("stacked_attn_epilogue").stacked_attn_epilogue_rows
+    fn.argtypes = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for (f, d_in, nh, dh, two), want in (
+            ((1, 789, 4, 16, 0), 64), ((3, 128, 4, 16, 0), 21), ((3, 128, 4, 16, 1), 21),
+            ((4, 64, 4, 16, 1), 16), ((16, 128, 4, 16, 1), 4), ((100, 128, 4, 16, 1), 1),
+            ((392, 128, 4, 16, 1), 1), ((393, 128, 4, 16, 1), 0),
+            ((792, 128, 4, 16, 0), 1), ((793, 128, 4, 16, 0), 0),
+            ((16, 128, 8, 64, 1), 1)):  # the lean layout: the tile's memory binds
+        assert fn(f, d_in, nh, dh, two, two) == want, (f, d_in, nh, dh, two)
+    for f in (1, 2, 3, 4, 5, 16, 17, 33, 49, 50, 64, 65, 100, 300, 392, 393, 792, 793, 2000):
+        for d_in in (1, 33, 64, 128, 129, 789):
+            for nh, dh in ((4, 16), (2, 4), (8, 64), (3, 24)):
+                for two, post in ((False, False), (True, True)):
+                    fits = f <= sra.attn_max_fanout(nh, dh, two, post)
+                    assert (fn(f, d_in, nh, dh, int(two), int(post)) > 0) == fits, \
+                        (f, d_in, nh, dh, two)
 
 
 @pytest.mark.cuda

@@ -273,9 +273,23 @@ def test_kernel_options_policy():
                     torch.from_numpy(mask), opts=KernelConfig(autotune=True))
     assert set(kops.KERNELS) >= {"stacked_mean_linear", "stacked_mean_linear_dh",
                                  "gather_rows"}
-    # the kernels on the fp32_tile.cuh core have no launch sizes to choose
-    assert set(kops.DEFAULT_BLOCKS) == {"stacked_attn_epilogue"}
+    # every kernel's tile is fixed in its source: no launch sizes to choose
+    assert not hasattr(kops, "DEFAULT_BLOCKS")
     assert not hasattr(kops, "resolve_blocks")
+
+
+def test_launch_path_names_missing_raw_queries(monkeypatch):
+    """The launch path's stream and device come from PyTorch's private raw
+    queries; a PyTorch without them (as a CPU-only build) gets a named error
+    at the first launch, not an AttributeError."""
+    for name in ("_RAW_STREAM", "_RAW_DEVICE"):
+        with monkeypatch.context() as m:
+            m.setattr(kops, name, None)
+            with pytest.raises(RuntimeError, match="_cuda_getCurrentRawStream"):
+                kops.cuda_stream(torch.device("cuda", 0))
+    monkeypatch.setattr(kops, "_RAW_DEVICE", None)
+    with pytest.raises(RuntimeError, match="raw queries"):
+        kops.on_device(torch.device("cuda", 0))
 
 
 def test_cpu_path_launches_no_kernel():

@@ -12,6 +12,7 @@ outputs and contractions in PyTorch's order, not XLA's.
 import threading
 import time
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -235,6 +236,58 @@ def test_feature_cache_mixed_path_matches_reference():
         np.testing.assert_array_equal(p_out[t].numpy(), np.asarray(r_out[t]))
     port.reset_stats()
     assert all(r == 0.0 for r in port.hit_rates().values())
+
+
+@pytest.mark.parametrize("num_shards", [1, 3])
+def test_feature_cache_consistency_check_matches_reference(num_shards):
+    """The non-replicative invariant (paper §6): after the same fetches,
+    learnable writes and re-admission through both caches, the port's
+    ``consistency_check`` answers as the reference's (True), with the same
+    cached ids and shard map; a duplicated slot or a shard off the mod-hash
+    rule makes both answer False."""
+    rng = np.random.default_rng(11)
+    tables = {"a": rng.standard_normal((120, 5)).astype(np.float32),
+              "b": rng.standard_normal((40, 4)).astype(np.float32)}
+    learn = {"b": 4}
+    counts = {t: rng.random(a.shape[0]) for t, a in tables.items()}
+
+    def alloc(rows, cls):
+        return cls(rows, {t: rows[t] * tables[t].shape[1] * 4 for t in rows}, 1 << 20, "t")
+
+    ref = RefFeatureCache({t: a.copy() for t, a in tables.items()}, learn,
+                          alloc({"a": 50, "b": 16}, RefCacheAllocation),
+                          RefHotnessProfile(counts), num_shards=num_shards)
+    port = FeatureCache({t: a.copy() for t, a in tables.items()}, learn,
+                        alloc({"a": 50, "b": 16}, CacheAllocation), HotnessProfile(counts),
+                        num_shards=num_shards, device="cpu")
+    assert port.consistency_check() is ref.consistency_check() is True
+    for step in range(3):
+        req = {"a": rng.integers(0, 120, 20), "b": rng.integers(0, 40, 9)}
+        for t in req:
+            np.testing.assert_array_equal(port.fetch_many(req)[t].numpy(),
+                                          np.asarray(ref.fetch_many(req)[t]))
+        nids = np.unique(rng.integers(0, 40, 7))
+        rows, m, v = (rng.standard_normal((len(nids), 4)).astype(np.float32) for _ in range(3))
+        ref.write_learnable("b", nids, jnp.asarray(rows), jnp.asarray(m), jnp.asarray(v))
+        port.write_learnable("b", nids, *(torch.from_numpy(a) for a in (rows, m, v)))
+        new_counts = {t: rng.random(a.shape[0]) for t, a in tables.items()}
+        rows_ = {"a": 30 + 10 * step, "b": 8 + 4 * step}
+        assert (port.update_residency(alloc(rows_, CacheAllocation), HotnessProfile(new_counts))
+                == ref.update_residency(alloc(rows_, RefCacheAllocation),
+                                        RefHotnessProfile(new_counts)))
+        assert port.consistency_check() is ref.consistency_check() is True
+        for t in ref.caches:
+            np.testing.assert_array_equal(port.caches[t].ids, ref.caches[t].ids)
+            np.testing.assert_array_equal(port.caches[t].shard_of, ref.caches[t].shard_of)
+    for cache in (ref, port):
+        c = cache.caches["a"]
+        ids = c.ids.copy()
+        c.ids = np.concatenate([ids[:-1], ids[:1]])  # a row cached in two slots
+        assert cache.consistency_check() is False
+        c.ids = ids
+        assert cache.consistency_check() is True
+        c.shard_of = (c.shard_of + 1) % max(2, num_shards)  # off the mod-hash rule
+        assert cache.consistency_check() is False
 
 
 def _toy_store(n=32, hidden=8, classes=5, seed=0):

@@ -13,9 +13,11 @@ non-zero exit and no result line):
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
      process per source, all at once; the ptxas registers and spills of every
      instantiation of the kernels redesigned for Hopper (flash_attention's
-     wgmma kernel; stacked_mean_linear, stacked_mean_linear_dh,
-     stacked_attn_dh and stacked_attn_epilogue on the fp32 register-tiled
-     core ``csrc/fp32_tile.cuh``; gather_rows), none of which may spill, and
+     wgmma kernel; stacked_mean_linear and relation_agg, both the template of
+     ``csrc/mean_linear.cuh``, stacked_mean_linear_dh, stacked_attn_dh and
+     stacked_attn_epilogue on the fp32 register-tiled core
+     ``csrc/fp32_tile.cuh``; gather_rows; stacked_softmax_combine), none of
+     which may spill, and
      ``cuobjdump -sass`` of the flash attention library, which must hold
      HGMMA and UTMALDG instructions;
   3. kernels vs plain — each kernel's wrapper on the card at ragged shapes
@@ -31,9 +33,12 @@ non-zero exit and no result line):
      gather_rows exactly at d in {1, 3, 4, 63, 64, 65, 128, 200} x n in {1,
      7, 874, 100000} with int32 and int64 indices, each also into an output
      4 bytes off the 16-byte grid; relation_agg (the dict-form R-GCN
-     aggregation) at the reference's AGG_SHAPES, the raf path's shapes and
-     an all-masked case; stacked_softmax_combine (the unfused attention epilogue) at the
-     reference's cases, f in {16, 64, 100}, ragged n and H beyond 256;
+     aggregation) at the reference's AGG_SHAPES and the raf path's shapes,
+     each also with h's base 4 bytes off the 16-byte grid, and an all-masked
+     case; stacked_softmax_combine (the unfused attention epilogue) at the
+     reference's cases, f in {16, 64, 100, 1000}, ragged n, dh = 5 and 6, H
+     beyond 256 and beyond 1024, each with v contiguous, v's base off the
+     16-byte grid, and e and v as HGT's head-major views;
      stacked_mean_linear and stacked_mean_linear_dh also at 108 ragged shapes
      each (n in {1, 1000, 4097}, d_in in {33, 100, 128, 789}, d_out in {1,
      65, 100}, f in {1, 3, 16}, five slots on two stack rows, every 7th row
@@ -63,7 +68,9 @@ non-zero exit and no result line):
      fuse_epilogue=False, 20 steps: stacked_softmax_combine launched, the
      fused kernels not; first 3 losses within 1e-5 of phase 4b's fused runs;
      then infer_all fused and unfused on the trained state (kernel 3 at
-     f = 16), the stores within atol/rtol 1e-5;
+     f = 16), the stores within atol/rtol 1e-5; for the fit and the unfused
+     infer_all, whether e and v reach kernel 3 contiguous, and the order of
+     their dimensions in memory;
   5. resume — a fresh session restores the step-10 checkpoint and trains
      to step 20; its losses must equal the uninterrupted run's bit for bit
      (every reduction on the path runs in a fixed order): R-GCN (5), HGT (5b);
@@ -84,16 +91,19 @@ non-zero exit and no result line):
      each path, the error against the plain version, kernel time (CUDA
      events over raw launches, inputs rotated through more than the 50 MB
      L2), the plain version's time, the library call's time where one
-     PyTorch call computes the same function (kernels 1, 2, 4, 5, 7 and 8
-     also as one CUDA graph of the same calls, which leaves out the host's
+     PyTorch call computes the same function (every kernel but 8's decode
+     shape also as one CUDA graph of the same calls, which leaves out the host's
      launch cost: ``graph_ms``, ``plain_graph_ms``, ``library_graph_ms``;
      stacked_attn_epilogue, which no one call computes, also its
      ``projection_library_ms``: its projections alone as one torch.bmm
      against the slot-gathered weights, a yardstick that computes less than
      the kernel), and the least
      time the card could take (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32
-     without tensor cores); relation_agg and stacked_softmax_combine at every shape their
-     paths launched; at f = 1 the library call of stacked_mean_linear
+     without tensor cores); relation_agg and stacked_softmax_combine at every
+     shape their paths launched, eager and as a graph (no one PyTorch call
+     computes either), kernel 3 also on HGT's head-major views through their
+     strides beside the contiguous copies of them that the kernel spares
+     (``strided_ms``, ``copy_ms``); at f = 1 the library call of stacked_mean_linear
      (torch.baddbmm) and of its dh (torch.bmm), the slot gather outside the
      timed call; plus the whole backward of the R-GCN autograd Function (dh
      + dw + db) at the leaf shape; flash_attention at the LM prefill's shape
@@ -102,7 +112,7 @@ non-zero exit and no result line):
      redesigned kernels' ptxas registers and spills again;
   8. card vs CPU — the same training session at a small scale on the GPU
      (kernels) and on the CPU (plain PyTorch), for R-GCN, R-GAT and HGT, the
-     raf executor's R-GCN and the unfused R-GAT: 3-step losses within 1e-5,
+     raf executor's R-GCN and the unfused R-GAT and HGT: 3-step losses within 1e-5,
      then (raf_spmd) every type's infer_all embeddings within atol/rtol
      1e-5; reduced llama3.2-3b (fp32): prefill logits and 8 decode steps
      within 1e-4;
@@ -178,12 +188,15 @@ def card_line() -> str:
 
 
 # the kernels redesigned for Hopper, by the kernel op whose library holds them
-REDESIGNED = {"stacked_mean_linear": "stacked_mean_linear_kernel",
+# (kernels 1 and 6 both hold mean_linear.cuh's template)
+REDESIGNED = {"stacked_mean_linear": "mean_linear_kernel",
               "stacked_mean_linear_dh": "stacked_mean_linear_dh_kernel",
               "stacked_attn_dh": "stacked_attn_dh_kernel",
               "stacked_attn_epilogue": "stacked_attn_epilogue_kernel",
               "gather_rows": "gather_rows_kernel",
-              "flash_attention": "flash_attention_wgmma_kernel"}
+              "flash_attention": "flash_attention_wgmma_kernel",
+              "relation_agg": "mean_linear_kernel",
+              "stacked_softmax_combine": "stacked_softmax_combine_kernel"}
 
 
 def ptxas_entries(log: str):
@@ -722,15 +735,27 @@ def time_attn_dh(shape, device):
 # --------------------------------------------------------------------------
 
 
-def relation_agg_inputs(shape, seed, device, all_masked=False):
+def offset_view(a, device):
+    """``a`` on the device as a contiguous view at storage offset 1 of a
+    larger buffer: its base 4 bytes off the 16-byte grid."""
+    import torch
+
+    buf = torch.empty(a.size + 1, dtype=torch.float32, device=device)
+    out = buf[1:].view(a.shape)
+    out.copy_(torch.from_numpy(a))
+    return out
+
+
+def relation_agg_inputs(shape, seed, device, all_masked=False, misaligned=False):
     """(h, mask, w, b) of a recorded relation_agg shape (n, f, d_in, d_out),
-    row 0 fully masked."""
+    row 0 fully masked; ``misaligned``: h's base off the 16-byte grid."""
     import numpy as np
     import torch
 
     n, f, di, do = shape
     r = np.random.default_rng(seed)
-    h = torch.from_numpy(r.standard_normal((n, f, di)).astype(np.float32)).to(device)
+    ha = r.standard_normal((n, f, di)).astype(np.float32)
+    h = offset_view(ha, device) if misaligned else torch.from_numpy(ha).to(device)
     m = np.zeros((n, f), bool) if all_masked else r.random((n, f)) > 0.3
     m[0] = False
     w = torch.from_numpy((r.standard_normal((di, do)) * 0.1).astype(np.float32)).to(device)
@@ -749,12 +774,12 @@ def close(name, shape, got, ref) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def check_relation_agg(shape, seed, device, all_masked=False) -> float:
+def check_relation_agg(shape, seed, device, all_masked=False, misaligned=False) -> float:
     import torch
 
     from repro_torch.kernels.relation_agg import ops as ra
 
-    h, mask, w, b = relation_agg_inputs(shape, seed, device, all_masked)
+    h, mask, w, b = relation_agg_inputs(shape, seed, device, all_masked, misaligned)
     got = ra.relation_agg(h, mask, w, b)
     ref = ra.relation_agg_ref(h, mask, w, b)
     torch.cuda.synchronize()
@@ -777,42 +802,63 @@ def time_relation_agg(shape, device):
            for h, mask, w, b in sets]
     ms = time_ms(ra.launch_kernel, raw)
     plain_ms = time_ms(ra.relation_agg_ref, sets)
+    graph = dict(graph_ms=time_ms(ra.launch_kernel, raw, graph=True),
+                 plain_graph_ms=time_ms(ra.relation_agg_ref, sets, graph=True),
+                 library_graph_ms=None)
     nbytes = h_bytes + n * f + di * do * 4 + do * 4 + n * do * 4
     flops = 2 * n * f * di + n * di + 2 * n * di * do + n * do
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, bytes=nbytes, flops=flops)
+                library_ms=None, bytes=nbytes, flops=flops, **graph)
 
 
-def softmax_combine_inputs(shape, seed, device):
+# kernel 3's operand layouts: as the einsums of R-GAT's attn_parts return
+# them (v contiguous), a v whose base is 4 bytes off the 16-byte grid, and
+# HGT's (e and v head-major views, [rb, nh, n, f] and [rb, nh, n, f, dh] in
+# memory)
+SC_LAYOUTS = ("contiguous", "misaligned", "head-major")
+
+
+def softmax_combine_inputs(shape, seed, device, layout="contiguous"):
     """(e, mask, v) of a recorded stacked_softmax_combine shape (rb, n, f,
-    nh, dh), row 0 of slot 0 fully masked."""
+    nh, dh) in one of SC_LAYOUTS, row 0 of slot 0 fully masked."""
     import numpy as np
     import torch
 
     rb, n, f, nh, dh = shape
     r = np.random.default_rng(seed)
-    e = torch.from_numpy(r.standard_normal((rb, n, f, nh)).astype(np.float32)).to(device)
-    v = torch.from_numpy(r.standard_normal((rb, n, f, nh, dh)).astype(np.float32)).to(device)
+    e = r.standard_normal((rb, n, f, nh)).astype(np.float32)
+    v = r.standard_normal((rb, n, f, nh, dh)).astype(np.float32)
     m = r.random((rb, n, f)) > 0.3
     m[0, 0] = False
-    return e, torch.from_numpy(m).to(device), v
+    if layout == "head-major":
+        te = torch.from_numpy(np.ascontiguousarray(e.transpose(0, 3, 1, 2))).to(device)
+        tv = torch.from_numpy(np.ascontiguousarray(v.transpose(0, 3, 1, 2, 4))).to(device)
+        te, tv = te.permute(0, 2, 3, 1), tv.permute(0, 2, 3, 1, 4)
+    else:
+        te = torch.from_numpy(e).to(device)
+        tv = offset_view(v, device) if layout == "misaligned" else torch.from_numpy(v).to(device)
+    return te, torch.from_numpy(m).to(device), tv
 
 
-def check_softmax_combine(shape, seed, device) -> float:
+def check_softmax_combine(shape, seed, device, layout="contiguous") -> float:
     import torch
 
     from repro_torch.kernels.stacked_relation_agg import ops as sra
 
-    e, mask, v = softmax_combine_inputs(shape, seed, device)
+    e, mask, v = softmax_combine_inputs(shape, seed, device, layout)
     got = sra.stacked_softmax_combine(e, mask, v)
     ref = sra.stacked_softmax_combine_ref(e, mask, v)
     torch.cuda.synchronize()
     check(not bool(got[0, 0].any()), f"stacked_softmax_combine {shape}: masked row is not 0")
-    return close("stacked_softmax_combine", shape, got, ref)
+    return close(f"stacked_softmax_combine ({layout})", shape, got, ref)
 
 
 def time_softmax_combine(shape, device):
+    """Kernel 3 on R-GAT's layout (v contiguous): eager and graph, against
+    the plain version; on HGT's head-major views, read through their strides
+    (``strided_ms``), beside the contiguous copies of e and v a wrapper would
+    otherwise make in front of the launch (``copy_ms``, graph times too)."""
     import torch
 
     from repro_torch.kernels.stacked_relation_agg import ops as sra
@@ -820,21 +866,34 @@ def time_softmax_combine(shape, device):
     rb, n, f, nh, dh = shape
     H = nh * dh
     v_bytes = rb * n * f * H * 4
-    sets = [softmax_combine_inputs(shape, 700 + i, device)
-            for i in range(copies_to_exceed_l2(v_bytes))]
-    rows = sra.softmax_combine_rows(H)
-    raw = [(e, mask.view(torch.uint8), v,
-            torch.empty((rb, n, H), dtype=torch.float32, device=device), rows)
-           for e, mask, v in sets]
+    raw, plain, strided, copies = [], [], [], []
+    for i in range(copies_to_exceed_l2(v_bytes)):
+        e, mask, v = softmax_combine_inputs(shape, 700 + i, device)
+        out = torch.empty((rb, n, H), dtype=torch.float32, device=device)
+        raw.append((e, mask.view(torch.uint8), v, out))
+        plain.append((e, mask, v))
+        pe, _, pv = softmax_combine_inputs(shape, 700 + i, device, "head-major")
+        strided.append((pe, mask.view(torch.uint8), pv, out))
+        copies.append((pe, pv))
+
+    def copy(pe, pv):
+        pe.contiguous(), pv.contiguous()
+
     ms = time_ms(sra.launch_softmax_combine, raw)
-    plain_ms = time_ms(sra.stacked_softmax_combine_ref, sets)
+    plain_ms = time_ms(sra.stacked_softmax_combine_ref, plain)
+    graph = dict(graph_ms=time_ms(sra.launch_softmax_combine, raw, graph=True),
+                 plain_graph_ms=time_ms(sra.stacked_softmax_combine_ref, plain, graph=True),
+                 library_graph_ms=None)
+    layout = dict(strided_ms=time_ms(sra.launch_softmax_combine, strided),
+                  strided_graph_ms=time_ms(sra.launch_softmax_combine, strided, graph=True),
+                  copy_ms=time_ms(copy, copies), copy_graph_ms=time_ms(copy, copies, graph=True))
     nbytes = rb * n * f * nh * 4 + rb * n * f + v_bytes + rb * n * H * 4
     # per (row, head): max, exp of the difference, sum, divide over f; per
     # (row, column): a multiply-add over f
     flops = 4 * rb * n * nh * f + 2 * rb * n * H * f
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, bytes=nbytes, flops=flops)
+                library_ms=None, bytes=nbytes, flops=flops, **graph, **layout)
 
 
 # --------------------------------------------------------------------------
@@ -1571,6 +1630,38 @@ def run_dense(scale: float, report: dict, graph) -> dict:
     return shapes_raf
 
 
+class OperandLayouts:
+    """While open, records the layout in which e and v reach kernel 3's
+    forward: per operand, whether it is contiguous and the order of its
+    dimensions in memory (outermost first)."""
+
+    def __init__(self):
+        self.seen = collections.Counter()
+
+    def __enter__(self):
+        from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+        inner = self._inner = sra.softmax_combine_forward
+
+        def spy(e, mask, v):
+            for name, t in (("e", e), ("v", v)):
+                order = tuple(sorted(range(t.dim()), key=lambda d: (-t.stride(d), d)))
+                self.seen[(name, t.is_contiguous(), order)] += 1
+            return inner(e, mask, v)
+
+        sra.softmax_combine_forward = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+        sra.softmax_combine_forward = self._inner
+
+    def summary(self) -> dict:
+        return {f"{name} {'contiguous' if c else 'permuted'} {list(o)}": k
+                for (name, c, o), k in sorted(self.seen.items())}
+
+
 def run_unfused(scale: float, report: dict, graph, model: str, fused_losses):
     """Phase 4d: R-GAT or HGT through raf_spmd with fuse_epilogue=False
     (the attn_parts projections, then kernel 3) from reset launch counts;
@@ -1585,8 +1676,9 @@ def run_unfused(scale: float, report: dict, graph, model: str, fused_losses):
     sess, _ = build_session(scale, None, model=model, fuse_epilogue=False, graph=graph)
     steps = sess.config.run.steps
     reset_launch_counts()
-    res = sess.fit(steps)
-    torch.cuda.synchronize()
+    with OperandLayouts() as fit_layouts:
+        res = sess.fit(steps)
+        torch.cuda.synchronize()
     launches, shapes = launch_counts()
     losses = res["losses"]
     check(len(losses) == steps and bool(np.isfinite(losses).all()), f"{model}: {losses}")
@@ -1607,11 +1699,16 @@ def run_unfused(scale: float, report: dict, graph, model: str, fused_losses):
     fused = sess.infer_all()
     sess.config = sess.config.updated(kernels=dict(fuse_epilogue=False))
     reset_launch_counts()
-    t1 = time.perf_counter()
-    store = sess.infer_all()
-    torch.cuda.synchronize()
-    t_infer = time.perf_counter() - t1
+    with OperandLayouts() as infer_layouts:
+        t1 = time.perf_counter()
+        store = sess.infer_all()
+        torch.cuda.synchronize()
+        t_infer = time.perf_counter() - t1
     s_launches, s_shapes = launch_counts()
+    layouts = dict(training=fit_layouts.summary(), infer_all=infer_layouts.summary())
+    log(f"  [{model} unfused] e and v as they reach kernel 3 (memory order of [rb, n, f, "
+        f"nh(, dh)], launches): training {layouts['training']}; infer_all "
+        f"{layouts['infer_all']}")
     check(any(x[2] == 16 for x in s_shapes["stacked_softmax_combine"]),
           f"{model} unfused infer_all: no kernel 3 launch at f = 16 "
           f"({dict(s_shapes['stacked_softmax_combine'])})")
@@ -1633,7 +1730,7 @@ def run_unfused(scale: float, report: dict, graph, model: str, fused_losses):
         host_time_s=res["host_time_s"], update_time_s=res["update_time_s"],
         launches=launches, shapes=shape_dict(shapes), infer_all_s=t_infer,
         infer_timings=dict(tm), infer_max_diff=worst, infer_launches=s_launches,
-        infer_shapes=shape_dict(s_shapes))
+        infer_shapes=shape_dict(s_shapes), operand_layouts=layouts)
     return shapes, s_shapes
 
 
@@ -1733,6 +1830,11 @@ def kernel_table(paths: dict, errs: dict, device):
                     log("      as one CUDA graph (no host launch cost): " + ", ".join(
                         f"{k} {'none' if t[k] is None else f'{t[k]:.4f} ms'}"
                         for k in ("graph_ms", "plain_graph_ms", "library_graph_ms")))
+                if "copy_ms" in t:
+                    log(f"      on HGT's head-major views through their strides "
+                        f"{t['strided_ms']:.4f} ms (graph {t['strided_graph_ms']:.4f}); "
+                        f"their contiguous copies alone {t['copy_ms']:.4f} ms (graph "
+                        f"{t['copy_graph_ms']:.4f})")
                 if "projection_library_ms" in t:
                     log(f"      yardstick computing less than the kernel (its projections "
                         f"alone, one torch.bmm): {t['projection_library_ms']:.4f} ms, as a "
@@ -1809,10 +1911,13 @@ RA_SHAPES = [(200, 25, 128, 64), (64, 20, 64, 64), (64, 4, 789, 64), (128, 20, 6
              (5, 3, 7, 16), (256, 10, 1024, 64), (1, 1, 1, 1), (1024, 4, 64, 64),
              (4096, 3, 128, 64), (4096, 3, 64, 64)]
 # (rb, n, f, nh, dh) of kernel 3: tests/test_stacked_kernels.py's cases,
-# f in {16, 64, 100} at ragged n, H = 72 and H = 320 (> 256 threads), the
-# training leaf and top and the serving block
+# f in {16, 64, 100, 1000} at ragged n, dh = 5 and 6 (4-column chunks that
+# straddle heads), H = 72 and H = 320 (> 256 threads), H = 1040 (a row over
+# two blocks), the training leaf and top and the serving block; each in
+# every layout of SC_LAYOUTS
 SC_SHAPES = [(3, 21, 4, 2, 5), (1, 1, 1, 1, 1), (5, 130, 3, 4, 16), (2, 7, 16, 4, 16),
              (3, 45, 64, 4, 16), (2, 9, 100, 4, 16), (3, 50, 5, 3, 24), (2, 33, 3, 8, 40),
+             (2, 9, 1000, 4, 16), (3, 21, 4, 2, 6), (2, 5, 20, 13, 80),
              (6, 4096, 3, 4, 16), (3, 1024, 4, 4, 16), (2, 1024, 16, 4, 16)]
 
 
@@ -1917,12 +2022,15 @@ def main(argv=None) -> int:
     # all-masked case; kernel 3 at the reference's cases, f in {16, 64, 100},
     # ragged n and the training and serving paths' shapes
     for i, shape in enumerate(RA_SHAPES):
-        errs["relation_agg"] = max(errs["relation_agg"], check_relation_agg(shape, i, DEVICE))
+        for misaligned in (False, True):
+            errs["relation_agg"] = max(errs["relation_agg"],
+                                       check_relation_agg(shape, i, DEVICE, misaligned=misaligned))
     errs["relation_agg"] = max(errs["relation_agg"],
                                check_relation_agg((16, 5, 32, 8), 99, DEVICE, all_masked=True))
     for i, shape in enumerate(SC_SHAPES):
-        errs["stacked_softmax_combine"] = max(errs["stacked_softmax_combine"],
-                                              check_softmax_combine(shape, i, DEVICE))
+        for layout in SC_LAYOUTS:
+            errs["stacked_softmax_combine"] = max(errs["stacked_softmax_combine"],
+                                                  check_softmax_combine(shape, i, DEVICE, layout))
     # kernel 8 at the reference's ATTN_CASES and the LM's shapes, fp32 and bf16
     flash_errs = [0.0, 0.0]
     for i, case in enumerate(FLASH_CASES + FLASH_RAGGED):
@@ -1993,7 +2101,7 @@ def main(argv=None) -> int:
     report["reference"] = {}
     for model, executor, fuse in (("rgcn", "raf_spmd", True), ("rgat", "raf_spmd", True),
                                   ("hgt", "raf_spmd", True), ("rgcn", "raf", True),
-                                  ("rgat", "raf_spmd", False)):
+                                  ("rgat", "raf_spmd", False), ("hgt", "raf_spmd", False)):
         report["reference"][f"{model} {executor}{'' if fuse else ' unfused'}"] = run_reference(
             args.ref_scale, model, executor=executor, fuse_epilogue=fuse)
     report["reference"]["llama3.2-3b reduced"] = run_lm_reference(args.seed)

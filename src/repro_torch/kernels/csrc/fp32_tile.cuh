@@ -1,6 +1,6 @@
-// The fp32 register-tiled product core shared by stacked_mean_linear.cu,
-// stacked_mean_linear_dh.cu, stacked_attn_dh.cu and stacked_attn_epilogue.cu,
-// for sm_90a.
+// The fp32 register-tiled product core shared by mean_linear.cuh (the kernel
+// of stacked_mean_linear.cu and relation_agg.cu), stacked_mean_linear_dh.cu,
+// stacked_attn_dh.cu and stacked_attn_epilogue.cu, for sm_90a.
 //
 // A block of 128 threads (4 warps) computes a tile of 16 * RM rows x 64
 // columns of C = A . B on the CUDA cores in full fp32.  Lane (ly, lx) =

@@ -12,9 +12,9 @@ live here:
     tensors live.  There is no interpreter for CUDA kernels, so
     ``interpret=True`` is refused.
   * **launch block sizes** — none to choose: every kernel's tile is fixed
-    in its source (kernels 1 and 5 pick their rows per block from the
-    shape in their C entry points, kernel 4 its rows per block from the
-    fanout).  ``KernelConfig.block_n/block_out/block_in`` are the
+    in its source (kernels 1, 5 and 6 pick their rows per block from the
+    shape in their C entry points, kernel 3 from the head width, kernel 4
+    from the fanout).  ``KernelConfig.block_n/block_out/block_in`` are the
     reference's config fields, validated and kept, but no CUDA launch reads
     them; :func:`refuse_autotune` refuses ``autotune=True``, since there is
     no tuning table.

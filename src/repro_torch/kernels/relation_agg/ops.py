@@ -6,7 +6,10 @@
 
   * forward — the hand-written CUDA kernel ``csrc/relation_agg.cu`` for CUDA
     tensors (fp32, contiguous; anything else raises), :func:`relation_agg_ref`
-    for CPU tensors;
+    for CPU tensors.  The kernel is the template of ``csrc/mean_linear.cuh``
+    that ``stacked_mean_linear`` runs, in its single-slot form: the same
+    arithmetic, so its outputs equal ``stacked_mean_linear``'s at rb = 1 bit
+    for bit; it picks its tile from the shape, and takes no block sizes;
   * backward — the reference's closed form as torch ops, from the masked
     mean recomputed out of the saved ``h``: ``dh = (g @ w^T / cnt) * mask``
     broadcast over f, ``dw = mean^T @ g``, ``db = g.sum(0)``.  The JAX

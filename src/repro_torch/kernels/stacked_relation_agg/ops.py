@@ -57,7 +57,11 @@ exact (by 1 or 0), so the only difference from the reference's
 forward is the kernel ``csrc/stacked_softmax_combine.cu`` (plain version
 :func:`stacked_softmax_combine_ref` on the CPU), the backward the
 reference's closed-form softmax Jacobian in torch ops from the recomputed
-probabilities.  The JAX package has no backward kernel for it.
+probabilities.  The JAX package has no backward kernel for it.  The kernel
+reads ``e`` and ``v`` through their strides, as ``attn_parts``' einsums
+return them (HGT's values as a head-major view), so no copy runs in front
+of it, and picks its rows per block from the head width itself:
+:func:`launch_softmax_combine` takes the operands and nothing else.
 """
 
 from __future__ import annotations
@@ -143,8 +147,6 @@ _DH_FN = None
 _SC_FN = None
 _AE_FN = None
 _ADH_FN = None
-# must match csrc/stacked_softmax_combine.cu: the threads of a block
-_THREADS = 256
 # must match csrc/fp32_tile.cuh: the columns of a block of kernels 1, 2, 5
 _TILE_COLS = 64
 # must match csrc/stacked_attn_epilogue.cu: the opt-in shared memory of one
@@ -850,34 +852,31 @@ def _sc_kernel():
         from repro_torch.kernels.build import load
 
         fn = load("stacked_softmax_combine").stacked_softmax_combine_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 5 + [ctypes.c_int]
-                       + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _SC_FN = fn
     return _SC_FN
 
 
-def softmax_combine_rows(head_width: int) -> int:
-    """Destination rows per block of ``csrc/stacked_softmax_combine.cu``:
-    one thread per (row, column) pair of its 256 threads, at least one row."""
-    return max(1, _THREADS // head_width)
-
-
-def launch_softmax_combine(e, mask_u8, v, out, rows) -> None:
+def launch_softmax_combine(e, mask_u8, v, out) -> None:
     """One raw launch on operands already checked and on ``e``'s device
-    (``v`` ``[rb, n, f, nh, dh]``, ``out`` allocated).  Not counted:
-    production calls go through :func:`softmax_combine_forward`."""
+    (``v`` ``[rb, n, f, nh, dh]`` with its last dimension contiguous, ``e``
+    of any strides, ``mask_u8`` and ``out`` contiguous).  Rows per block are
+    the kernel's own choice, from the head width.  Not counted: production
+    calls go through :func:`softmax_combine_forward`."""
     rb, n, f, nh, dh = v.shape
     with on_device(e.device):
         status = _sc_kernel()(e.data_ptr(), mask_u8.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              rb, n, f, nh, dh, rows, cuda_stream(e.device))
+                              rb, n, f, nh, dh, *e.stride(), *v.stride()[:4],
+                              cuda_stream(e.device))
     check_launch(status, "stacked_softmax_combine")
 
 
 def softmax_combine_forward(e, mask, v) -> torch.Tensor:
     """The masked softmax + combine forward: the kernel for CUDA tensors
-    (fp32, contiguous; anything else raises), the plain version for CPU
-    ones."""
+    (fp32; ``e`` of any strides, ``v`` with its last dimension contiguous,
+    as ``attn_parts``' einsums return them; anything else raises), the plain
+    version for CPU ones."""
     op = "stacked_softmax_combine"
     if v.dim() != 5 or e.shape != v.shape[:4] or mask.shape != v.shape[:3]:
         raise ValueError(f"{op} shapes: e {tuple(e.shape)}, mask {tuple(mask.shape)}, "
@@ -886,15 +885,21 @@ def softmax_combine_forward(e, mask, v) -> torch.Tensor:
         if e.device.type != "cpu":
             raise ValueError(f"{op}: unsupported device {e.device}")
         return stacked_softmax_combine_ref(e, mask, v)
-    mask_u8 = _cuda_operands(op, e.device, (("e", e), ("mask", mask), ("v", v)), ("e", "v"),
-                             mask)
+    if v.shape[4] > 1 and v.stride(4) != 1:
+        raise ValueError(f"{op} kernel takes a v whose last dimension has unit stride")
+    mask_u8 = _cuda_operands(op, e.device, (("mask", mask),), (), mask)
+    for name, t in (("e", e), ("v", v)):
+        if t.device != e.device:
+            raise ValueError(f"{op}: {name} on {t.device}, expected {e.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{op} kernel takes float32 {name}, got {t.dtype}")
     rb, n, f, nh, dh = v.shape
     if rb > 65535:
         raise ValueError(f"{op}: {rb} slots exceed the grid's 65535")
     out = torch.empty((rb, n, nh * dh), dtype=torch.float32, device=e.device)
     if min(rb, n, nh * dh) == 0:
         return out
-    launch_softmax_combine(e, mask_u8, v, out, softmax_combine_rows(nh * dh))
+    launch_softmax_combine(e, mask_u8, v, out)
     INFO_SC.record((rb, n, f, nh, dh))
     return out
 
@@ -931,11 +936,12 @@ def stacked_softmax_combine(
     """Masked softmax over f of ``e``, then ``out[s, i, h] = sum_j alpha[s, i,
     j, h] * v[s, i, j, h]`` -> ``[rb, n, nh * dh]``, differentiable in ``e``
     and ``v`` (:class:`_StackedSoftmaxCombine`).  A fully masked row gives
-    zeros.  CUDA tensors launch ``csrc/stacked_softmax_combine.cu``; CPU
-    tensors run :func:`stacked_softmax_combine_ref`."""
-    # the kernel takes contiguous operands; attn_parts' einsums may return
-    # permuted views
-    return _StackedSoftmaxCombine.apply(e.contiguous(), mask, v.contiguous())
+    zeros.  CUDA tensors launch ``csrc/stacked_softmax_combine.cu``, which
+    reads ``e`` and ``v`` through their strides (HGT's einsums return
+    permuted views; they reach the kernel with no copy; ``v``'s last
+    dimension must have unit stride); CPU tensors run
+    :func:`stacked_softmax_combine_ref`."""
+    return _StackedSoftmaxCombine.apply(e, mask, v)
 
 
 def _attn_parts_agg(module, stacks, slot_u, h, q, mask) -> torch.Tensor:

@@ -203,6 +203,27 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
     torch.cuda.synchronize()
     np.testing.assert_allclose(out4.cpu().numpy(), stacked_attn_epilogue_ref(
         h4, mask4, **ops4, us=us4, num_heads=2, head_dim=4, **kw4).cpu().numpy(), **TOL)
+    # kernel 3 picks its rows per block from the head width itself: its raw
+    # launch takes the operands and nothing else
+    e3 = torch.zeros((2, 5, 3, 2), device=cuda_device)
+    v3 = torch.ones((2, 5, 3, 2, 4), device=cuda_device)
+    m3 = torch.ones((2, 5, 3), dtype=torch.uint8, device=cuda_device)
+    out3 = torch.empty((2, 5, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        sra.launch_softmax_combine(e3, m3, v3, out3, 32)
+    with pytest.raises(TypeError):
+        sra.launch_softmax_combine(e3, m3, v3, out3, rows=32)
+    sra.launch_softmax_combine(e3, m3, v3, out3)
+    torch.cuda.synchronize()
+    assert torch.equal(out3, torch.ones_like(out3))  # equal logits: the mean of ones
+    with pytest.raises(ValueError, match="float32"):
+        sra.softmax_combine_forward(e3.double(), m3, v3.double())
+    with pytest.raises(ValueError, match="unit stride"):
+        sra.softmax_combine_forward(
+            e3, m3, torch.zeros((2, 5, 3, 4, 2), device=cuda_device).transpose(3, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        sra.softmax_combine_forward(e3, torch.ones((2, 3, 5), dtype=torch.uint8,
+                                                   device=cuda_device).transpose(1, 2), v3)
 
 
 # (rb, n, f, d_in, d_out, U) of the backward: the ragged shapes above and
@@ -719,16 +740,27 @@ AGG_SHAPES = [(200, 25, 128, 64), (64, 20, 64, 64), (64, 4, 789, 64), (128, 20, 
               (4096, 3, 128, 64), (4096, 3, 64, 64)]
 
 
+def _relation_agg_case(n, f, di, do, device, misaligned=False):
+    """(h, mask, w, b) on ``device``, row 0 all-masked; ``misaligned``: h a
+    contiguous view whose base is 4 bytes off the 16-byte grid."""
+    r = np.random.default_rng(n + di)
+    ha = r.standard_normal((n, f, di)).astype(np.float32)
+    if misaligned:
+        h = torch.empty(ha.size + 1, device=device)[1:].view(n, f, di)
+        h.copy_(torch.from_numpy(ha))
+    else:
+        h = torch.from_numpy(ha).to(device)
+    m = r.random((n, f)) > 0.3
+    m[0] = False
+    w = torch.from_numpy((r.standard_normal((di, do)) * 0.1).astype(np.float32)).to(device)
+    b = torch.from_numpy((r.standard_normal(do) * 0.1).astype(np.float32)).to(device)
+    return h, torch.from_numpy(m).to(device), w, b
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,f,di,do", AGG_SHAPES)
 def test_cuda_relation_agg_matches_plain(cuda_device, n, f, di, do):
-    r = np.random.default_rng(n + di)
-    h = torch.from_numpy(r.standard_normal((n, f, di)).astype(np.float32)).to(cuda_device)
-    m = r.random((n, f)) > 0.3
-    m[0] = False  # an all-masked row gives b
-    mask = torch.from_numpy(m).to(cuda_device)
-    w = torch.from_numpy((r.standard_normal((di, do)) * 0.1).astype(np.float32)).to(cuda_device)
-    b = torch.from_numpy((r.standard_normal(do) * 0.1).astype(np.float32)).to(cuda_device)
+    h, mask, w, b = _relation_agg_case(n, f, di, do, cuda_device)  # row 0 all-masked: b
     kops.reset_launch_counts()
     got = ra_ops.relation_agg(h, mask, w, b)
     torch.cuda.synchronize()
@@ -736,6 +768,35 @@ def test_cuda_relation_agg_matches_plain(cuda_device, n, f, di, do):
     want = ra_ops.relation_agg_ref(h, mask, w, b)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
     np.testing.assert_allclose(got[0].cpu().numpy(), b.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,di,do", AGG_SHAPES)
+def test_cuda_relation_agg_reads_a_misaligned_h(cuda_device, n, f, di, do):
+    """h's base off the 16-byte grid: the kernel's 4-byte copies, and the
+    same outputs as from an aligned copy of h, bit for bit."""
+    h, mask, w, b = _relation_agg_case(n, f, di, do, cuda_device, misaligned=True)
+    assert h.data_ptr() % 16 != 0 and h.is_contiguous()
+    got = ra_ops.relation_agg(h, mask, w, b)
+    aligned = ra_ops.relation_agg(h.clone(), mask, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ra_ops.relation_agg_ref(h, mask, w, b).cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,di,do", AGG_SHAPES)
+def test_cuda_relation_agg_repeats_and_equals_kernel_1_at_one_slot(cuda_device, n, f, di, do):
+    """Kernel 6 is mean_linear.cuh's template at one slot: two launches
+    give the same bits, and so does stacked_mean_linear at rb = 1."""
+    h, mask, w, b = _relation_agg_case(n, f, di, do, cuda_device)
+    first = ra_ops.relation_agg(h, mask, w, b)
+    again = ra_ops.relation_agg(h, mask, w, b)
+    stacked = stacked_mean_linear(h[None], mask[None], w[None], b[None], np.zeros(1, np.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first, stacked[0])
 
 
 @pytest.mark.cuda
@@ -755,21 +816,43 @@ def test_cuda_relation_agg_refuses_what_it_does_not_take(cuda_device):
 
 
 # (rb, n, f, nh, dh): tests/test_stacked_kernels.py's cases, the fanouts the
-# paths take (f = 16 on the serving path) and beyond, ragged n, H > 256
+# paths take (f = 16 on the serving path) and beyond (f = 1000: the logits
+# in chunks), ragged n, dh = 5 and 6 (4-byte loads; 4-column chunks that
+# straddle heads), H > 256 and H > 1024 (a row over two blocks)
 SC_SHAPES = [(3, 21, 4, 2, 5), (1, 1, 1, 1, 1), (5, 130, 3, 4, 16), (2, 7, 16, 4, 16),
              (3, 45, 64, 4, 16), (2, 9, 100, 4, 16), (3, 50, 5, 3, 24), (2, 33, 3, 8, 40),
-             (6, 4096, 3, 4, 16), (3, 1024, 4, 4, 16), (2, 1024, 16, 4, 16)]
+             (6, 4096, 3, 4, 16), (3, 1024, 4, 4, 16), (2, 1024, 16, 4, 16),
+             (2, 9, 1000, 4, 16), (3, 21, 4, 2, 6), (2, 5, 20, 13, 80)]
+
+
+def _combine_case(rb, n, f, nh, dh, device, layout="contiguous"):
+    """(e, mask, v) on ``device``, row 0 of slot 0 fully masked.  Layouts:
+    contiguous; ``misaligned`` (v a contiguous view 4 bytes off the 16-byte
+    grid); ``head-major`` (e and v as HGT's einsums return them, views of
+    [rb, nh, n, f(, dh)] buffers)."""
+    r = np.random.default_rng(rb * n + f)
+    e = r.standard_normal((rb, n, f, nh)).astype(np.float32)
+    v = r.standard_normal((rb, n, f, nh, dh)).astype(np.float32)
+    m = r.random((rb, n, f)) > 0.3
+    m[0, 0] = False  # a fully masked row gives zeros
+    if layout == "head-major":
+        te = torch.from_numpy(np.ascontiguousarray(e.transpose(0, 3, 1, 2))).to(device)
+        tv = torch.from_numpy(np.ascontiguousarray(v.transpose(0, 3, 1, 2, 4))).to(device)
+        te, tv = te.permute(0, 2, 3, 1), tv.permute(0, 2, 3, 1, 4)
+    else:
+        te = torch.from_numpy(e).to(device)
+        if layout == "misaligned":
+            tv = torch.empty(v.size + 1, device=device)[1:].view(v.shape)
+            tv.copy_(torch.from_numpy(v))
+        else:
+            tv = torch.from_numpy(v).to(device)
+    return te, torch.from_numpy(m).to(device), tv
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rb,n,f,nh,dh", SC_SHAPES)
 def test_cuda_softmax_combine_matches_plain(cuda_device, rb, n, f, nh, dh):
-    r = np.random.default_rng(rb * n + f)
-    e = torch.from_numpy(r.standard_normal((rb, n, f, nh)).astype(np.float32)).to(cuda_device)
-    v = torch.from_numpy(r.standard_normal((rb, n, f, nh, dh)).astype(np.float32)).to(cuda_device)
-    m = r.random((rb, n, f)) > 0.3
-    m[0, 0] = False  # a fully masked row gives zeros
-    mask = torch.from_numpy(m).to(cuda_device)
+    e, mask, v = _combine_case(rb, n, f, nh, dh, cuda_device)
     kops.reset_launch_counts()
     got = stacked_softmax_combine(e, mask, v)
     torch.cuda.synchronize()
@@ -777,6 +860,36 @@ def test_cuda_softmax_combine_matches_plain(cuda_device, rb, n, f, nh, dh):
     want = stacked_softmax_combine_ref(e, mask, v)
     assert torch.isfinite(got).all() and not got[0, 0].any()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["misaligned", "head-major"])
+@pytest.mark.parametrize("rb,n,f,nh,dh", SC_SHAPES)
+def test_cuda_softmax_combine_reads_its_operands_where_they_lie(cuda_device, rb, n, f, nh,
+                                                                dh, layout):
+    """v off the 16-byte grid (4-byte loads) and e and v as head-major
+    views (read through their strides, no copy): the same bits as from
+    contiguous copies, within 1e-5 of the plain version."""
+    e, mask, v = _combine_case(rb, n, f, nh, dh, cuda_device, layout)
+    if layout == "misaligned":
+        assert v.data_ptr() % 16 != 0
+    kops.reset_launch_counts()
+    got = stacked_softmax_combine(e, mask, v)
+    torch.cuda.synchronize()
+    assert kops.KERNELS["stacked_softmax_combine"].launches == 1
+    assert torch.equal(got, stacked_softmax_combine(e.contiguous(), mask, v.clone()))
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               stacked_softmax_combine_ref(e, mask, v).cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb,n,f,nh,dh", SC_SHAPES)
+def test_cuda_softmax_combine_repeats_bit_for_bit(cuda_device, rb, n, f, nh, dh):
+    e, mask, v = _combine_case(rb, n, f, nh, dh, cuda_device)
+    first = stacked_softmax_combine(e, mask, v)
+    again = stacked_softmax_combine(e, mask, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

@@ -33,6 +33,7 @@ from repro_torch.checkpoint.ckpt import _items
 from repro_torch.convert import bundle_from_reference
 from repro_torch.core import hgnn, raf
 from repro_torch.kernels.relation_agg import relation_agg, relation_agg_ref
+from repro_torch.kernels.stacked_relation_agg import stacked_mean_linear_ref
 from repro_torch.optim.adam import global_norm, tree_leaves, tree_map
 
 ATOL = 1e-5
@@ -91,6 +92,19 @@ def test_relation_agg_matches_reference(n, f, di, do):
     np.testing.assert_allclose(out, ref_out, atol=ATOL, rtol=ATOL)
     for name, a, c in zip(("dh", "dw", "db"), got_g, ref_g):
         np.testing.assert_allclose(a, c, atol=ATOL, rtol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("n,f,di,do", AGG_SHAPES)
+def test_relation_agg_is_stacked_mean_linear_at_one_slot(n, f, di, do):
+    """The plain versions of kernel 6 and of kernel 1 at rb = 1 agree within
+    1e-6: the function that csrc/relation_agg.cu computes with the template
+    of csrc/mean_linear.cuh at one slot."""
+    h, m, w, b = _agg_case(n, f, di, do, seed=3 * n + do)
+    m[1 % n] = False  # an all-masked row gives b
+    th, tm, tw, tb = (torch.from_numpy(a) for a in (h, m, w, b))
+    one = relation_agg_ref(th, tm, tw, tb)
+    stacked = stacked_mean_linear_ref(th[None], tm[None], tw[None], tb[None], np.zeros(1, np.int32))
+    np.testing.assert_allclose(one.numpy(), stacked[0].numpy(), atol=1e-6, rtol=0)
 
 
 def test_relation_agg_all_masked_rows_give_the_bias():

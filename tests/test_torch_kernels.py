@@ -10,6 +10,8 @@ so it runs on the GPU host) and ``chip_smoke.py`` hold them against their
 plain versions on the card.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -319,6 +321,10 @@ def test_kernel_sources_declare_c_entry_points():
                         ("flash_attention", "flash_attention_fwd")):
         text = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {entry}(' in text
+        # the launch may sit in a header of csrc/ that the source includes
+        # (kernels 1 and 6 share mean_linear.cuh's)
+        for header in re.findall(r'#include "([^"]+)"', text):
+            text += (build.CSRC / header).read_text()
         assert "return (int)cudaGetLastError();" in text
         assert build.library_path(name).name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
@@ -329,7 +335,9 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     library built against the old header is never loaded."""
     from repro_torch.kernels import build
 
-    assert '#include "fp32_tile.cuh"' in (build.CSRC / "stacked_mean_linear.cu").read_text()
+    for name in ("stacked_mean_linear.cu", "relation_agg.cu"):
+        assert '#include "mean_linear.cuh"' in (build.CSRC / name).read_text()
+    assert '#include "fp32_tile.cuh"' in (build.CSRC / "mean_linear.cuh").read_text()
     (tmp_path / "k.cu").write_text('#include "core.cuh"\n')
     (tmp_path / "core.cuh").write_text("// one\n")
     monkeypatch.setattr(build, "CSRC", tmp_path)

@@ -14,6 +14,8 @@ gradients within 1e-5, 3-step losses and ``infer_all`` embeddings within
 1e-5.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,7 +50,9 @@ def _combine_case(rb, n, f, nh, dh, seed):
     return e, mask, v
 
 
-@pytest.mark.parametrize("rb,n,f,nh,dh", [(3, 21, 4, 2, 5), (1, 1, 1, 1, 1), (5, 130, 3, 4, 16)])
+@pytest.mark.parametrize("rb,n,f,nh,dh", [(3, 21, 4, 2, 5), (1, 1, 1, 1, 1), (5, 130, 3, 4, 16),
+                                           (2, 9, 1000, 4, 16), (3, 21, 4, 2, 6),
+                                           (2, 33, 3, 8, 40)])
 def test_stacked_softmax_combine_matches_reference(rb, n, f, nh, dh):
     """Forward within 1e-6 of the reference's Pallas kernel; the gradients
     into e and v within 1e-5 of its custom VJP.  Both backwards take the
@@ -195,17 +199,24 @@ def test_unfused_path_reaches_kernel_3_on_cuda_tensors(monkeypatch):
     plain = sra.stacked_softmax_combine_ref
     launched = []
 
-    def fake_launch(e, mask_u8, v, out, rows):
-        launched.append((tuple(v.shape), rows))
+    def fake_launch(*args, **kwargs):
+        # the kernel picks its rows per block itself: operands only
+        assert not kwargs and len(args) == 4, (len(args), sorted(kwargs))
+        e, mask_u8, v, out = args
+        launched.append((tuple(v.shape), v.is_contiguous()))
         out.copy_(plain(e, mask_u8.bool(), v))
 
     sess = Heta(_port_config(_ref_config("hgt", "raf_spmd", steps=1), fuse_epilogue=False),
                 device="cpu")
     sess.run()
+    params = list(inspect.signature(sra.launch_softmax_combine).parameters)
     monkeypatch.setattr(sra, "_is_cuda", lambda t: True)
     monkeypatch.setattr(sra, "stacked_softmax_combine_ref", refuse)
     monkeypatch.setattr(sra, "launch_softmax_combine", fake_launch)
     kops.reset_launch_counts()
     sess.step()
     assert len(launched) == 2 == kops.KERNELS["stacked_softmax_combine"].launches
-    assert all(rows == sra.softmax_combine_rows(32) for _, rows in launched)
+    assert params == ["e", "mask_u8", "v", "out"]
+    assert not hasattr(sra, "softmax_combine_rows")
+    # HGT's values reach the launch as the einsum's head-major view: no copy
+    assert not any(contiguous for _, contiguous in launched)

@@ -71,6 +71,28 @@ non-zero exit and no result line):
      f = 16), the stores within atol/rtol 1e-5; for the fit and the unfused
      infer_all, whether e and v reach kernel 3 contiguous, and the order of
      their dimensions in memory;
+  4e. the asynchronous host pipeline — R-GCN raf_spmd on phase 4's graph,
+     20 steps a fit, from reset launch counts each: a producer thread and a
+     pool of 2 spawned sampler processes over the shared-memory graph store
+     and batch arena, each under snapshot "fresh" (losses bit-equal to phase
+     4's serial ones; the pooled session's evaluate equal to phase 4's) and
+     "stale" (within 5e-2 of them, step 0's batch re-scored lower; pooled
+     workers stage against the tables republished after each step, queue
+     items under 1 KiB); frozen tables serial, threaded, pooled with and
+     without the arena (all bit-equal); a pooled frozen fit whose worker
+     owning item 5 is killed (respawned once, losses bit-equal); two pooled
+     fit(10) calls on one pool (equal to one fit(20)); HGT pooled "fresh"
+     (bit-equal to phase 4b's); the serial loop runs again beside them.
+     Each run prints step/host/update time, samples/s, overlap fraction,
+     queue bytes, wall ms a step (the fit's, which holds a pool's start,
+     and the steady rate over steps 2..19), the first step's latency, the
+     republish ms a step under "stale", and its launches (kernels 1, 2 and
+     7 wherever tables train; frozen tables have no sparse update, so no
+     gather_rows: 1 and 2).  Then infer_all(shm=True) on
+     the pooled "fresh" state equals the in-process store bit for bit, a
+     server over it answers 512 requests, and one with a scheduled
+     fail_flush retries once with no degraded answer; no segment named with
+     this process's pid is left;
   5. resume — a fresh session restores the step-10 checkpoint and trains
      to step 20; its losses must equal the uninterrupted run's bit for bit
      (every reduction on the path runs in a fixed order): R-GCN (5), HGT (5b);
@@ -1239,25 +1261,29 @@ def run_lm_reference(seed: int, steps: int = 8) -> dict:
 
 
 def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn",
-                   executor: str = "raf_spmd", fuse_epilogue: bool = True):
+                   executor: str = "raf_spmd", fuse_epilogue: bool = True,
+                   pipeline=None, learnable: bool = True):
     from repro_torch.api import DataConfig, HetaConfig, ModelConfig
 
-    return HetaConfig(
+    cfg = HetaConfig(
         data=DataConfig(dataset="ogbn-mag", scale=scale, fanouts=(4, 3),
                         batch_size=batch_size),
-        model=ModelConfig(model=model),
+        model=ModelConfig(model=model, train_learnable=learnable),
     ).updated(run=dict(executor=executor), kernels=dict(fuse_epilogue=fuse_epilogue))
+    return cfg if pipeline is None else cfg.updated(pipeline=dict(enabled=True, **pipeline))
 
 
 def build_session(scale: float, device, max_degree: int = 16, batch_size: int = 1024,
                   model: str = "rgcn", executor: str = "raf_spmd", fuse_epilogue: bool = True,
-                  graph=None):
+                  graph=None, pipeline=None, learnable: bool = True):
     """A compiled session; ``graph`` reuses a graph built (and bounded)
-    before."""
+    before; ``pipeline`` (a dict of ``PipelineConfig`` fields) turns the
+    host pipeline on."""
     from repro_torch.api import Heta
     from repro_torch.serve import bounded_graph
 
-    sess = Heta(session_config(scale, batch_size, model, executor, fuse_epilogue),
+    sess = Heta(session_config(scale, batch_size, model, executor, fuse_epilogue, pipeline,
+                               learnable),
                 device=device)
     g = graph if graph is not None else bounded_graph(sess.build_graph(), max_degree)
     sess.build_graph(g)
@@ -1286,7 +1312,7 @@ def count_all_hit_fetches(cache) -> dict:
     return counts
 
 
-def drive_server(name, server, store, n_target, seed, requests=512):
+def drive_server(name, server, store, n_target, seed, requests=512, retries=0):
     import numpy as np
     import torch
 
@@ -1307,9 +1333,9 @@ def drive_server(name, server, store, n_target, seed, requests=512):
         check(bool(np.allclose(res.scores, plain, **TOL)),
               f"{name}: scores differ from relu(e) @ w + b "
               f"(max abs err {np.abs(res.scores - plain).max():.3g})")
-    check(stats.degraded == 0 and stats.retries == 0 and stats.breaker_trips == 0,
-          f"{name}: degraded={stats.degraded} retries={stats.retries} "
-          f"breaker_trips={stats.breaker_trips}; the device path failed")
+    check(stats.degraded == 0 and stats.retries == retries and stats.breaker_trips == 0,
+          f"{name}: degraded={stats.degraded} retries={stats.retries} (expected {retries}) "
+          f"breaker_trips={stats.breaker_trips}")
     check(server.cache.consistency_check(),
           f"{name}: the cache broke the non-replicative invariant (duplicate slots or a "
           "shard off the mod-hash rule)")
@@ -1411,7 +1437,8 @@ def run_training(scale: float, report: dict, ckpt_dir, model: str = "rgcn"):
         batch_size=sess.config.data.batch_size, losses=losses, eval_loss=ev["loss"],
         first_batch_after=first_after,
         fit_wall_s=t_fit, step_time_s=res["step_time_s"], host_time_s=res["host_time_s"],
-        update_time_s=res["update_time_s"], step_times=list(sess.step_times),
+        update_time_s=res["update_time_s"], samples_per_s=res["samples_per_s"],
+        overlap_fraction=res["overlap_fraction"], step_times=list(sess.step_times),
         host_times=list(sess.host_times), update_times=list(sess.update_times),
         hit_rates=res["hit_rates"], engine_steps=dict(sess.engine.steps),
         all_hit_fetches=dict(all_hit), launches=launches, shapes=shape_dict(shapes),
@@ -1732,6 +1759,242 @@ def run_unfused(scale: float, report: dict, graph, model: str, fused_losses):
         infer_timings=dict(tm), infer_max_diff=worst, infer_launches=s_launches,
         infer_shapes=shape_dict(s_shapes), operand_layouts=layouts)
     return shapes, s_shapes
+
+
+PIPE_WORKERS = 2  # phase 4e's sampler processes
+
+
+def own_segments() -> list:
+    """This process's shared-memory segments (the port's prefix and pid)."""
+    import os
+
+    from repro_torch.graph.shm import live_segments
+
+    return live_segments(f"heta-tshm-{os.getpid():x}-")
+
+
+def pipelined_fit(label: str, scale: float, graph, report: dict, pipeline=None,
+                  learnable: bool = True, model: str = "rgcn", fits=(20,),
+                  fault_plan=None, shapes_acc=None):
+    """One phase-4e fit: a session on the card with the host pipeline as
+    ``pipeline`` says (None: the serial loop), trained ``fits`` (one fit
+    per entry, from reset launch counts, read after the last), its metrics
+    printed.  Besides the fit's wall time (which holds a pool's start: the
+    shm export and the spawn of its workers) it times the steady rate, the
+    wall time from the end of step 1 to the end of the last step over the
+    steps between, and the first step's latency.  Returns the session, its
+    result dict and the pool each fit drew from; the caller closes the
+    session's pipeline."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    t0 = time.perf_counter()
+    sess, _ = build_session(scale, None, model=model, graph=graph, pipeline=pipeline,
+                            learnable=learnable)
+    check(sess.device.type == "cuda", f"{label}: session landed on {sess.device}")
+    check(sess.plan.learn_feats == learnable, f"{label}: learn_feats {sess.plan.learn_feats}")
+    sess.fault_plan = fault_plan
+    stamps = []  # the wall clock at the end of each consumed step
+    record = sess._record
+
+    def stamped(*args):
+        loss = record(*args)
+        stamps.append(time.perf_counter())
+        return loss
+
+    sess._record = stamped
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    pools = []
+    for n in fits:
+        res = sess.fit(n)
+        if sess._pool_cache is not None:
+            pools.append(sess._pool_cache[2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches, shapes = launch_counts()
+    if shapes_acc is not None:
+        for name, c in shapes.items():
+            shapes_acc.setdefault(name, collections.Counter()).update(c)
+    losses = res["losses"]
+    steps = sum(fits)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"{label}: losses {losses}")
+    need = TRAIN_KERNELS[model] if learnable or model != "rgcn" else TRAIN_KERNELS[model][:2]
+    for name in need:
+        check(launches[name] > 0, f"kernel {name} was not launched by {label}")
+    rep = np.median(sess.republish_times) * 1e3 if sess.republish_times else None
+    restarts = list(pools[-1].restarts) if pools else []
+    steady = (stamps[-1] - stamps[1]) / (len(stamps) - 2) * 1e3
+    first = (stamps[0] - t1) * 1e3
+    m = dict(losses=losses, steps=steps, fit_wall_s=wall, wall_ms_per_step=wall / steps * 1e3,
+             steady_ms_per_step=steady, first_step_ms=first,
+             steady_samples_per_s=sess.config.data.batch_size / steady * 1e3,
+             step_time_s=res["step_time_s"], host_time_s=res["host_time_s"],
+             update_time_s=res["update_time_s"], samples_per_s=res["samples_per_s"],
+             overlap_fraction=res["overlap_fraction"],
+             queue_bytes_per_step=res["queue_bytes_per_step"],
+             republish_ms=rep, republish_times=list(sess.republish_times),
+             sampler_workers=res["sampler_workers"], restarts=restarts,
+             launches=launches, step_times=list(sess.step_times),
+             host_times=list(sess.host_times), update_times=list(sess.update_times))
+    log(f"  [{label}] {steps} steps in {wall:.3f} s wall ({m['wall_ms_per_step']:.3f} ms a "
+        f"step; steady {steady:.3f} ms a step over steps 2..{steps - 1}, "
+        f"{m['steady_samples_per_s']:.1f} samples/s; first step {first:.1f} ms); step_time_s {res['step_time_s']:.6f} host_time_s {res['host_time_s']:.6f} "
+        f"update_time_s {res['update_time_s']:.6f} samples_per_s {res['samples_per_s']:.1f} "
+        f"overlap_fraction {res['overlap_fraction']:.4f} queue_bytes_per_step "
+        f"{res['queue_bytes_per_step']:.1f}"
+        + ("" if rep is None else f"; republish {rep:.3f} ms a step (median)")
+        + f"; launches {dict((k, v) for k, v in launches.items() if v)}"
+        + (f"; restarts {restarts}" if restarts else "")
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    report.setdefault("pipeline", {})[label] = m
+    return sess, res, pools
+
+
+def run_pipeline(scale: float, report: dict, graph) -> dict:
+    """Phase 4e: R-GCN raf_spmd at full width on phase 4's graph through the
+    asynchronous host pipeline — a producer thread, and a pool of
+    ``PIPE_WORKERS`` spawned sampler processes over the shared-memory
+    graph store and batch arena — against the serial loop; a worker killed
+    mid-fit; one pool over two fits; pooled evaluate; HGT pooled; then
+    the shm-backed embedding store, served, with one scheduled flush
+    fault.  Returns the shapes the R-GCN and HGT pipelined fits launched
+    each kernel at."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.data.faults import KILL_EXIT_CODE, FaultPlan, FaultSpec
+    from repro_torch.serve.server import EmbeddingServer
+
+    t_phase = time.perf_counter()
+    W = PIPE_WORKERS
+    serial = report["training"]["rgcn"]
+    want = serial["losses"]
+    log(f"  os.cpu_count() {os.cpu_count()}; {W} sampler workers; the serial loop (phase 4): "
+        f"step_time_s {serial['step_time_s']:.6f} host_time_s {serial['host_time_s']:.6f} "
+        f"update_time_s {serial['update_time_s']:.6f} samples_per_s "
+        f"{serial['samples_per_s']:.1f} overlap_fraction {serial['overlap_fraction']:.4f}")
+    rgcn_shapes, hgt_shapes = {}, {}
+
+    def fit(label, **kw):
+        return pipelined_fit(label, scale, graph, report, shapes_acc=rgcn_shapes, **kw)
+
+    def close(sess):
+        sess.close_pipeline()
+        sess.close_serving()
+
+    # the serial loop again, timed as the pipelined runs are
+    sess, res, _ = fit("serial")
+    check(res["losses"] == want, "the serial fit differs from phase 4's")
+    close(sess)
+    # learnable tables: "fresh" bit for bit, "stale" within the reference's bound
+    for mode, pipeline in (("thread", {}), ("pool", dict(num_workers=W))):
+        sess, res, _ = fit(f"{mode} fresh", pipeline=dict(snapshot="fresh", **pipeline))
+        check(res["losses"] == want, f"{mode} fresh: losses {res['losses']} differ from the "
+              f"serial {want}")
+        if mode == "pool":
+            check(0 < res["queue_bytes_per_step"] < 1024,
+                  f"pool fresh: {res['queue_bytes_per_step']} bytes a queue item")
+            ev = sess.evaluate(num_batches=2)
+            check(ev["loss"] == serial["eval_loss"],
+                  f"pooled evaluate {ev['loss']} differs from the serial {serial['eval_loss']}")
+            log(f"  [pool fresh] pooled evaluate {ev['loss']:.9f} = serial "
+                f"{serial['eval_loss']:.9f}")
+            report["pipeline"]["pool fresh"]["eval_loss"] = ev["loss"]
+            fresh_pool = sess
+        else:
+            close(sess)
+        sess, res, _ = fit(f"{mode} stale", pipeline=dict(snapshot="stale", **pipeline))
+        gap = float(np.abs(np.asarray(res["losses"]) - want).max())
+        first_after, _ = sess.executor.loss_and_metrics(sess, sess.plan, sess.state,
+                                                        sess._batch_for_step(0))
+        log(f"  [{mode} stale] max |loss - serial| {gap:.3g} (bound 5e-2); step 0's batch "
+            f"re-scored {first_after:.6f} after the fit, {res['losses'][0]:.6f} before")
+        check(gap <= 5e-2, f"{mode} stale: losses {gap:.3g} from the serial ones")
+        check(first_after < res["losses"][0], f"{mode} stale: step 0's batch not lowered")
+        if mode == "pool":
+            check(0 < res["queue_bytes_per_step"] < 1024,
+                  f"pool stale: {res['queue_bytes_per_step']} bytes a queue item")
+            check(len(sess.republish_times) == len(res["losses"]),
+                  f"pool stale: {len(sess.republish_times)} republishes")
+            check(sess._pool_cache[1].handle.tables_mutable,
+                  "pool stale: the workers do not stage against republished tables")
+        report["pipeline"][f"{mode} stale"]["max_gap"] = gap
+        close(sess)
+
+    # frozen tables: serial, thread, pool with and without the arena
+    frozen = {}
+    for label, pipeline in (("frozen serial", None), ("frozen thread", {}),
+                            ("frozen pool", dict(num_workers=W)),
+                            ("frozen pool no arena", dict(num_workers=W, arena=False))):
+        sess, res, _ = fit(label, pipeline=pipeline, learnable=False)
+        frozen[label] = res["losses"]
+        close(sess)
+    for label, losses in frozen.items():
+        check(losses == frozen["frozen serial"], f"{label}: losses differ from the serial")
+    check(report["pipeline"]["frozen pool"]["queue_bytes_per_step"] < 1024
+          < report["pipeline"]["frozen pool no arena"]["queue_bytes_per_step"],
+          "frozen pools: queue item sizes out of order")
+
+    # a worker killed mid-fit: respawned, its stripe replayed, losses unchanged
+    plan = FaultPlan((FaultSpec("kill_worker", step=5),))
+    sess, res, pools = fit("frozen pool, worker of item 5 killed",
+                           pipeline=dict(num_workers=W), learnable=False, fault_plan=plan)
+    restarts = pools[-1].restarts
+    check(res["losses"] == frozen["frozen serial"], "fault drill: losses differ")
+    check(len(restarts) == 1 and restarts[0]["exitcode"] == KILL_EXIT_CODE,
+          f"fault drill: restarts {restarts}")
+    log(f"  [fault drill] worker {restarts[0]['wid']} (owner of item 5) killed, respawned at "
+        f"item {restarts[0]['item']} after {restarts[0]['downtime_s'] * 1e3:.1f} ms; losses "
+        "bit-equal to the serial frozen fit")
+    close(sess)
+
+    # one pool over two fits
+    sess, res, pools = fit("pool fresh, fit(10) twice",
+                           pipeline=dict(snapshot="fresh", num_workers=W), fits=(10, 10))
+    check(pools[0] is pools[1] and not pools[1]._closed, "the second fit spawned a new pool")
+    check(res["losses"] == want, "two pooled fits differ from one serial fit of 20")
+    close(sess)
+
+    # HGT, pooled, "fresh"
+    sess, res, _ = pipelined_fit("hgt pool fresh", scale, graph, report, model="hgt",
+                                 pipeline=dict(snapshot="fresh", num_workers=W),
+                                 shapes_acc=hgt_shapes)
+    check(res["losses"] == report["training"]["hgt"]["losses"],
+          "hgt pool fresh: losses differ from phase 4b's")
+    close(sess)
+
+    # the shm-backed store on the pooled "fresh" state (phase 4's, bit for bit)
+    sess = fresh_pool
+    sess.close_pipeline()
+    plain = sess.infer_all()
+    shared = sess.infer_all(shm=True)
+    seg = shared.handle.segment
+    for t, a in plain.embeddings.items():
+        check(np.array_equal(shared.embeddings[t], a), f"shm store: {t} differs")
+    for k in ("w", "b"):
+        check(np.array_equal(shared.head[k], plain.head[k]), f"shm store: head {k} differs")
+    check(seg in own_segments(), f"shm store: segment {seg} is not this process's")
+    n_target = graph.num_nodes[graph.target_type]
+    with EmbeddingServer(shared, cache_mb=sess.config.serve.cache_mb,
+                         kernels=sess.config.kernels) as srv:
+        served = drive_server("[shm store] server", srv, shared, n_target, seed=3)
+    with EmbeddingServer(shared, cache_mb=sess.config.serve.cache_mb,
+                         kernels=sess.config.kernels,
+                         faults=FaultPlan((FaultSpec("fail_flush", step=0, count=1),))) as srv:
+        faulted = drive_server("[shm store] server, one fail_flush", srv, shared, n_target,
+                               seed=4, retries=1)
+    sess.close_serving()
+    check(not own_segments(), f"segments left: {own_segments()}")
+    report["pipeline"]["shm store"] = dict(segment=seg, served=served, fail_flush=faulted)
+    log(f"  shm store equal to the in-process one; served 512 + 512 requests (one retry "
+        f"with the fault); no segment of pid {os.getpid()} left "
+        f"({time.perf_counter() - t_phase:.1f} s phase)")
+    return rgcn_shapes, hgt_shapes
 
 
 def run_reference(scale: float, model: str = "rgcn", steps: int = 3,
@@ -2071,12 +2334,17 @@ def main(argv=None) -> int:
         log(f"== 4d {model} training with the epilogue unfused (kernel 3), then infer_all")
         paths[f"{model} unfused training"], paths[f"{model} unfused serving"] = run_unfused(
             args.scale, report, g, model, report["training"][model]["losses"])
+    log(f"== 4e the asynchronous host pipeline: R-GCN (and HGT) through a producer thread "
+        f"and {PIPE_WORKERS} sampler processes against the serial loop; the shm store served")
+    paths["rgcn pipeline training"], paths["hgt pipeline training"] = run_pipeline(
+        args.scale, report, g)
     log(f"== 9 LM workbench: llama3.2-3b at full width (bf16, seed {args.seed}), prefill "
         "4 x 2048 then 32 greedy decode steps")
     paths["lm prefill + decode"] = run_lm(report, args.seed)
     order = [f"{m} {p}" for p in ("training", "serving") for m in ("rgcn", "rgat", "hgt")]
     order += ["rgcn raf training"] + [f"{m} unfused {p}" for p in ("training", "serving")
                                       for m in ("rgat", "hgt")]
+    order += ["rgcn pipeline training", "hgt pipeline training"]
     order += ["lm prefill + decode"]
     paths = {p: paths[p] for p in order}
 

@@ -1,10 +1,10 @@
 """HetaConfig — the typed, validated configuration tree of the public API.
 
 The port keeps the reference package's configuration field for field, so a
-config dict round-trips between the two packages unchanged; sections whose
-machinery belongs to a later slice of the port (the async pipeline and
-its workers, scale-out) are accepted and validated here, and the stage
-that would use them raises a named error.
+config dict round-trips between the two packages unchanged; the section
+whose machinery belongs to a later slice of the port (scale-out) is
+accepted and validated here, and the stage that would use it raises a
+named error.
 
 One config object describes a complete Heta run.  It composes eleven
 section dataclasses mirroring the pipeline stages:

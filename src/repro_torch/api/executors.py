@@ -15,8 +15,25 @@ exposes graph / spec / assignment / engine / hgnn_cfg / adam_cfg / device):
       The sparse-update share is recorded in ``plan.last_update_s``.
   ``step(sess, plan, state, batch)``      the serial composition of the two
   ``stage_reads_tables(sess, plan) -> bool``
-      whether ``stage`` reads learnable tables that train
+      whether ``stage`` reads learnable tables that train (drives the
+      pipeline's snapshot staleness policy; see ``repro_torch.data``)
+  ``worker_stage_recipe(sess, plan) -> picklable | None``
+      a picklable recipe with which a *sampler worker process* performs the
+      host part of ``stage`` against tables exported into the shared-memory
+      store or batch arena (``repro_torch.data.staging.stack_batch_host``),
+      or None when staging stays on the consumer (the default)
+  ``stage_from_host(sess, plan, batch, host_arrays) -> arrays``
+      the consumer's completion of worker staging: the host arrays a worker
+      produced under the recipe, on the session's device; with
+      ``host_arrays=None`` the full ``stage`` (the default).  ``host_arrays``
+      may be read-only views into a batch-arena slot, which the stream hands
+      back to its writer when the next item is drawn, so nothing returned
+      may alias them
   ``loss_and_metrics(sess, plan, state, batch) -> (loss, metrics)``  eval only
+
+``stage`` may run in the pipeline's producer thread for a future batch while
+the trainer's thread runs the current step; it does host work and copies to
+the device, and launches no kernel.
 
 The port registers the reference's four:
 
@@ -45,6 +62,7 @@ Register your own with ``@executors.register("name")``.
 from __future__ import annotations
 
 import time
+import weakref
 from types import SimpleNamespace
 from typing import Dict, Tuple, Type
 
@@ -106,6 +124,16 @@ class Executor:
 
     def stage_reads_tables(self, sess, plan) -> bool:
         return False
+
+    def worker_stage_recipe(self, sess, plan):
+        """Picklable host-staging recipe for sampler worker processes, or
+        None when staging stays on the consumer (the default)."""
+        return None
+
+    def stage_from_host(self, sess, plan, batch, host_arrays):
+        """Finish staging from worker-produced host arrays.  The base
+        protocol has no worker staging, so this is the full ``stage``."""
+        return self.stage(sess, plan, batch)
 
     def loss_and_metrics(self, sess, plan, state, batch):
         raise NotImplementedError
@@ -304,21 +332,59 @@ class RafSpmdExecutor(Executor):
         """Snapshot the tables, stack the batch branch-major on the host and
         copy it to the device.  With frozen features the tables never
         change, so re-staging the same batch object returns the last
-        arrays."""
+        arrays.  The memo holds the batch by weak reference: a pooled
+        batch's arrays are views into a batch-arena slot, which must not be
+        kept past the next draw.
+
+        When the pipeline stages in its producer thread while learnable
+        tables train, the snapshot may lag the device step by up to
+        ``pipeline.depth + 1`` steps — the documented ``"stale"`` policy."""
         from repro_torch.core import raf_spmd
 
         if not plan.learn_feats:
             cached = getattr(plan, "_stage_cache", None)
-            if cached is not None and cached[0] is batch:
+            if cached is not None and cached[0]() is batch:
                 return cached[1]
         tables = sess.engine.tables_snapshot()
         arrays = raf_spmd.stack_batch(plan.plan, batch, tables, sess.device)
         if not plan.learn_feats:
-            plan._stage_cache = (batch, arrays)
+            plan._stage_cache = (weakref.ref(batch), arrays)
         return arrays
 
     def stage_reads_tables(self, sess, plan) -> bool:
         return bool(plan.learn_feats)
+
+    def worker_stage_recipe(self, sess, plan):
+        """With frozen tables the whole host side of :meth:`stage` — the
+        padded feature gathers — runs inside sampler workers against tables
+        exported into the shm store or batch arena; the consumer only copies
+        to the device.
+
+        While learnable tables train, workers cannot see the trainer's row
+        updates, so staging stays on the consumer (None) — *except* under
+        the batch arena with the ``"stale"`` snapshot policy: the session
+        republishes the learnable tables into the arena's seqlock'd table
+        region after every step, so workers stage against snapshots at most
+        the ring depth behind the trainer (DESIGN.md §11)."""
+        if plan.learn_feats:
+            p = sess.config.pipeline
+            if not (p.arena and p.num_workers > 0 and p.snapshot == "stale"):
+                return None
+        from repro_torch.core import raf_spmd
+
+        return raf_spmd.stack_recipe(plan.plan)
+
+    def stage_from_host(self, sess, plan, batch, host_arrays):
+        """The consumer's completion of worker staging: the worker-staged
+        host arrays on the session's device through
+        :func:`repro_torch.core.raf_spmd.host_to_device`, which copies each
+        (read-only slot views included) into a pinned buffer before the
+        asynchronous copy to a GPU, so no tensor aliases slot memory."""
+        if host_arrays is None:
+            return self.stage(sess, plan, batch)
+        from repro_torch.core import raf_spmd
+
+        return raf_spmd.host_to_device(host_arrays, sess.device)
 
     def step_staged(self, sess, plan, state, batch, arrays):
         from repro_torch.core import raf_spmd

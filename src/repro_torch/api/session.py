@@ -18,20 +18,26 @@ prerequisite; ``run()`` executes whatever stages remain and then ``fit()``.
 accounting of the execution models.  ``compile(state=...)`` takes parameter
 stacks (``raf_spmd``) or a dict-form bundle (``vanilla``, ``raf``) from
 elsewhere (``repro_torch.convert``) instead of the port's own init.
-``fit`` and ``evaluate`` run the serial loop: the async pipeline
-(``pipeline.enabled``), its sampler worker pool and the data-parallel
-scale-out tier (``scale.enabled``) are later slices of the port, and asking
-for them raises ``NotImplementedError``.
+
+With ``pipeline.enabled``, ``fit`` and ``evaluate`` overlap host sampling
+and staging with the device step (``repro_torch.data``, DESIGN.md §9/§11):
+in one producer thread, or in ``pipeline.num_workers`` spawned sampler
+processes over a shared-memory graph store and batch arena, supervised as
+DESIGN.md §12 says (``fault_plan`` schedules faults for drills).  The
+data-parallel scale-out tier (``scale.enabled``) is a later slice of the
+port, and asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import hashlib
 import json
 import os
 import re
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -116,13 +122,27 @@ class Heta:
         self.step_times: List[float] = []  # compute + sparse update, per step
         self.host_times: List[float] = []  # sample + stage, per step
         self.update_times: List[float] = []  # sparse update share of step_times
+        # seconds of each pooled "stale" step's republish of the learnable
+        # tables into the batch arena (on the consumer, after the step)
+        self.republish_times: List[float] = []
+        # fit-loop overlap accounting (wall vs serial sum; see results())
         self._fit_wall_s = 0.0
         self._fit_serial_s = 0.0
         self._fit_steps = 0
         self._steps_done = 0
+        self._queue_bytes: List[int] = []  # pooled fits: per-item queue size
+        # persistent sampler pool:
+        # [store, arena, pool, next_global_step, workers]
+        # (spawn + shm export amortize across fit() calls; see _acquire_pool)
+        self._pool_cache = None
+        self._pool_atexit_cb = None
         # online inference tier (repro_torch.serve)
         self.embedding_store = None
         self._server = None
+        # deterministic chaos drills (repro_torch.data.faults.FaultPlan, or
+        # None): threaded into the training pool's SampleStageTask and the
+        # embedding server
+        self.fault_plan = None
 
     # -- stage guards --------------------------------------------------------
 
@@ -140,9 +160,18 @@ class Heta:
 
         Pass ``graph`` to reuse a pre-built :class:`HetGraph` instead of
         synthesizing from ``DataConfig``."""
+        from repro_torch.graph.shm import cleanup_stale_segments
         from repro_torch.graph.synthetic import make_dataset
 
         t0 = time.perf_counter()
+        # shm janitor (DESIGN.md §12): a hard-crashed earlier run can leave
+        # orphaned graph/arena segments; sweep the port's whose owner pid is
+        # gone before allocating new ones (the reference also sweeps its
+        # on-disk mmap stores here, which the port does not have yet)
+        try:
+            cleanup_stale_segments()
+        except OSError:
+            pass  # best-effort: /dev/shm may be absent on this platform
         cfg = self.config
         self.graph = graph if graph is not None else make_dataset(
             cfg.data.dataset, scale=cfg.data.scale, seed=cfg.run.seed)
@@ -258,22 +287,32 @@ class Heta:
     # -- stage 3: §6 profiling + cache ---------------------------------------
 
     def profile_and_cache(self) -> CacheReport:
-        """Pre-sample hotness, profile miss penalties, allocate the cache."""
+        """Pre-sample hotness, profile miss penalties, allocate the cache.
+
+        With ``pipeline.num_workers > 0`` the §6 pre-sampling epoch — the
+        same ``batch_at`` sweep the training pool runs — fans out over a
+        worker pool (bit-identical counts; visit counting is an
+        order-independent sum)."""
         from repro_torch.embed import EmbedEngine, profile_miss_penalties
-        from repro_torch.embed.profiler import presample_hotness
+        from repro_torch.embed.profiler import presample_hotness, presample_hotness_pooled
 
         self._require("spec", "partition", "profile_and_cache")
         t0 = time.perf_counter()
         cfg = self.config
         if cfg.pipeline.enabled and cfg.pipeline.num_workers > 0:
-            raise NotImplementedError(
-                "pipeline.num_workers > 0: the sampler worker pool is a later "
-                "slice of the port (with the async pipeline); use num_workers=0")
-        hotness = presample_hotness(
-            self.graph, self.spec, cfg.data.batch_size,
-            epochs=cfg.cache.presample_epochs,
-            max_batches=cfg.cache.presample_max_batches, seed=cfg.run.seed,
-        )
+            hotness = presample_hotness_pooled(
+                self.graph, self.spec, cfg.data.batch_size,
+                num_workers=cfg.pipeline.num_workers,
+                epochs=cfg.cache.presample_epochs,
+                max_batches=cfg.cache.presample_max_batches,
+                seed=cfg.run.seed, depth=cfg.pipeline.depth,
+            )
+        else:
+            hotness = presample_hotness(
+                self.graph, self.spec, cfg.data.batch_size,
+                epochs=cfg.cache.presample_epochs,
+                max_batches=cfg.cache.presample_max_batches, seed=cfg.run.seed,
+            )
         penalties = profile_miss_penalties(
             self.graph, learnable_dim=cfg.model.learnable_dim,
             measured=cfg.cache.measured_penalties, device=self.device,
@@ -331,18 +370,12 @@ class Heta:
 
     # -- stage 5: training / evaluation ---------------------------------------
 
-    def _serial_only(self, what: str) -> None:
-        cfg = self.config
-        if cfg.scale.enabled:
+    def _refuse_scale_out(self, what: str) -> None:
+        if self.config.scale.enabled:
             raise NotImplementedError(
                 f"{what} with scale.enabled: the data-parallel trainer "
                 "(data/dp_trainer.py on torch.distributed) is a later slice of "
                 "the port; use scale.num_trainers=1")
-        if cfg.pipeline.enabled:
-            raise NotImplementedError(
-                f"{what} with pipeline.enabled: the async host pipeline "
-                "(prefetch thread, sampler worker pool, batch arena) is a later "
-                "slice of the port; use pipeline.enabled=False")
 
     def step(self, batch=None) -> float:
         """One optimization step (samples the next batch when none given).
@@ -354,13 +387,29 @@ class Heta:
         t0 = time.perf_counter()
         if batch is None:
             batch = self._next_batch()
+        if not self._staged_protocol():
+            # an executor that overrides only the composed step()
+            host_s = time.perf_counter() - t0
+            self.state, loss, dt = self.executor.step(self, self.plan, self.state, batch)
+            return self._record(loss, dt, host_s)
         arrays = self.executor.stage(self, self.plan, batch)
         return self._consume(batch, arrays, time.perf_counter() - t0)
+
+    def _staged_protocol(self) -> bool:
+        """Whether the executor implements the staged-step seam (an executor
+        that overrides only the composed ``step`` keeps working on the
+        serial path)."""
+        return type(self.executor).stage is not _executors.Executor.stage
 
     def _consume(self, batch, arrays, host_s: float) -> float:
         """Run the device step on staged arrays and record the books."""
         self.state, loss, dt = self.executor.step_staged(
             self, self.plan, self.state, batch, arrays)
+        return self._record(loss, dt, host_s)
+
+    def _record(self, loss: float, dt: float, host_s: float) -> float:
+        """The books of one consumed step, then re-admission and
+        checkpointing when they are due."""
         self.host_times.append(host_s)
         self.step_times.append(dt)
         self.update_times.append(float(getattr(self.plan, "last_update_s", 0.0)))
@@ -379,28 +428,112 @@ class Heta:
             self.engine.rebalance()
 
     def fit(self, steps: Optional[int] = None) -> Dict:
-        """Train for ``steps`` (default ``RunConfig.steps``) in the serial
-        loop; returns :meth:`results`."""
+        """Train for ``steps`` (default ``RunConfig.steps``); returns
+        :meth:`results`.
+
+        With ``pipeline.enabled`` the loop is driven by a
+        :class:`repro_torch.data.SampleStream`: sampling + staging for batch
+        *i+1* runs in the background while batch *i* trains, under the
+        configured snapshot staleness policy — in one producer thread by
+        default, or in ``pipeline.num_workers`` sampler processes over a
+        shared-memory graph store (DESIGN.md §9), batches flowing through
+        the zero-pickle batch arena (DESIGN.md §11) unless
+        ``pipeline.arena`` is off.  The pool + store + arena persist across
+        consecutive ``fit()`` calls (see :meth:`close_pipeline`) and are
+        torn down on error.  Batches are bit-identical to the serial path
+        for any worker count (per-batch RNG); losses are bit-identical too
+        except under ``snapshot="stale"`` with learnable tables, where
+        staging reads tables at most the queue or ring depth behind."""
         self._require("state", "compile", "fit")
         steps = self.config.run.steps if steps is None else steps
         if steps:
-            self._serial_only("fit")
+            self._refuse_scale_out("fit")
         log_every = self.config.run.log_every
-        t_wall = time.perf_counter()
-        n0 = len(self.step_times)
-        for _ in range(steps):
-            loss = self.step()
+
+        def logged(loss: float) -> None:
             i = self._steps_done - 1
             if log_every and i % log_every == 0:
                 print(f"step {i:4d} loss {loss:.4f} "
                       f"({self.step_times[-1]*1e3:.1f} ms)")
+
+        t_wall = time.perf_counter()
+        n0 = len(self.step_times)
+        if steps and self.config.pipeline.enabled:
+            self._pipelined_fit(steps, logged)
+        else:
+            for _ in range(steps):
+                logged(self.step())
         self._fit_wall_s += time.perf_counter() - t_wall
         self._fit_steps += len(self.step_times) - n0
         self._fit_serial_s += sum(self.host_times[n0:]) + sum(self.step_times[n0:])
         return self.results()
 
+    def _pipelined_fit(self, steps: int, logged) -> None:
+        """The body of a pipelined :meth:`fit` (the reference's pipelined
+        branch of ``fit``)."""
+        if not self._staged_protocol():
+            raise HetaStageError(
+                f"executor {self.executor.name!r} does not implement the "
+                "staged-step protocol (stage/step_staged) required by "
+                "pipeline.enabled; disable the pipeline or implement it")
+        from repro_torch.data.sample_stream import SampleStream
+
+        pcfg = self.config.pipeline
+        start = self._steps_done
+        defer = (pcfg.snapshot == "fresh"
+                 and self.executor.stage_reads_tables(self, self.plan))
+        stream_kw = {}
+        arena = None
+        if pcfg.num_workers > 0:
+            pool, arena = self._acquire_pool(start)
+            stream_kw = dict(
+                num_workers=pcfg.num_workers,
+                pool=pool,
+                arena=arena,
+                spec=self.spec,
+                finish_stage=lambda b, host: self.executor.stage_from_host(
+                    self, self.plan, b, host),
+            )
+        # learnable-"stale" worker staging: after every consumed step,
+        # republish the updated learnable tables into the arena's seqlock'd
+        # region so workers stage batch i+k against tables at most the ring
+        # depth behind the trainer (DESIGN.md §11).  On a GPU each republish
+        # copies every learnable table's cached rows to the host, on the
+        # consumer's critical path; its seconds go to republish_times.
+        republish = arena is not None and arena.handle.tables_mutable
+        try:
+            with SampleStream(
+                lambda i: self._batch_for_step(start + i),
+                lambda b: self.executor.stage(self, self.plan, b),
+                num_steps=steps, depth=pcfg.depth, defer_stage=defer,
+                **stream_kw,
+            ) as stream:
+                for batch, arrays, host_s in stream:
+                    logged(self._consume(batch, arrays, host_s))
+                    if self._pool_cache is not None and stream_kw:
+                        self._pool_cache[3] += 1  # pool stays in sync
+                    if republish:
+                        t0 = time.perf_counter()
+                        arena.publish_tables({
+                            t: self.engine.table(t)
+                            for t in self.engine.learnable_types
+                        })
+                        self.republish_times.append(time.perf_counter() - t0)
+                self._queue_bytes.extend(stream.queue_bytes)
+        except BaseException:
+            # a failed pooled fit leaves pool position and _steps_done out
+            # of sync (and possibly dead workers): tear down so the next fit
+            # starts a fresh, aligned pool
+            self.close_pipeline()
+            raise
+
     def evaluate(self, num_batches: int = 1, use_full_graph: bool = False) -> Dict:
         """Mean held-out-batch loss via the executor's eval path (no update).
+
+        With ``pipeline.enabled``, batches are prefetched in the background
+        — by a thread, or by ``pipeline.num_workers`` sampler processes over
+        a shared-memory graph store (eval staging never trains tables, so
+        any producer is bit-exact).
 
         ``use_full_graph=True`` scores the *same* held-out batches against
         the embeddings :meth:`infer_all` materialized instead of running the
@@ -408,17 +541,17 @@ class Heta:
         from repro_torch.graph.sampler import NeighborSampler
 
         self._require("state", "compile", "evaluate")
-        self._serial_only("evaluate")
+        self._refuse_scale_out("evaluate")
         eval_seed = self.config.run.seed + 9999
         sampler = NeighborSampler(
             self.graph, self.spec, self.config.data.batch_size, seed=eval_seed,
         )
         n = min(num_batches, sampler.steps_per_epoch())
         losses, metrics = [], {}
-        it = sampler.epoch(shuffle=True, seed=eval_seed)
         if use_full_graph:
             self._require("embedding_store", "infer_all",
                           "evaluate(use_full_graph=True)")
+            it = sampler.epoch(shuffle=True, seed=eval_seed)
             for _ in range(n):
                 b = next(it)
                 logits = self.embedding_store.scores(b.seeds).astype(np.float64)
@@ -427,10 +560,50 @@ class Heta:
                 losses.append(float(-logp[np.arange(len(b.seeds)), b.labels].mean()))
             return {"loss": float(np.mean(losses)),
                     "num_batches": len(losses), "full_graph": True}
-        for _ in range(n):
-            loss, metrics = self.executor.loss_and_metrics(self, self.plan,
-                                                           self.state, next(it))
+
+        def consume(b):
+            loss, m = self.executor.loss_and_metrics(self, self.plan, self.state, b)
             losses.append(loss)
+            return m
+
+        pcfg = self.config.pipeline
+        if pcfg.enabled and pcfg.num_workers > 0:
+            from repro_torch.data.sample_stream import SampleStream
+            from repro_torch.data.worker_pool import EpochSchedule, WorkerPool
+
+            store, arena, task = self._pool_task(
+                EpochSchedule(eval_seed, sampler.steps_per_epoch()), eval_seed)
+            try:
+                with WorkerPool(task, num_workers=pcfg.num_workers,
+                                depth=pcfg.depth, num_items=n, name="eval-pool",
+                                **self._supervision_kw(arena)) as pool:
+                    # the stream resolves arena SlotRefs (and passes tuples
+                    # through); eval consumes raw batches, so the
+                    # consumer-side completion is a no-op
+                    with SampleStream(
+                        num_steps=n, num_workers=pcfg.num_workers,
+                        pool=pool, arena=arena, spec=self.spec,
+                        finish_stage=lambda b, host: None,
+                    ) as stream:
+                        for b, _, _ in stream:
+                            metrics = consume(b)
+            finally:
+                try:
+                    store.unlink()
+                finally:
+                    if arena is not None:
+                        arena.unlink()
+        elif pcfg.enabled:
+            from repro_torch.data.prefetch import Prefetcher
+
+            with Prefetcher(lambda i: sampler.batch_at(i, epoch_seed=eval_seed),
+                            depth=pcfg.depth, num_items=n, name="eval-stream") as pf:
+                for b in pf:
+                    metrics = consume(b)
+        else:
+            it = sampler.epoch(shuffle=True, seed=eval_seed)
+            for _ in range(n):
+                metrics = consume(next(it))
         return {"loss": float(np.mean(losses)), "num_batches": len(losses),
                 **{k: v for k, v in metrics.items() if k != "loss"}}
 
@@ -455,21 +628,30 @@ class Heta:
                  else self.step_times) or [0.0]
         updates = (self.update_times[2:] if len(self.update_times) > 4
                    else self.update_times) or [0.0]
+        # overlap fraction: share of serial host+device work hidden by the
+        # pipeline (0 when serial: wall >= host + step by construction)
+        serial = self._fit_serial_s
+        overlap = max(0.0, 1.0 - self._fit_wall_s / serial) if serial > 0 else 0.0
+        # seeds consumed per second of fit() wall time
         samples_per_s = (
             self._fit_steps * self.config.data.batch_size / self._fit_wall_s
             if self._fit_wall_s > 0 else 0.0
         )
+        pcfg = self.config.pipeline
         return {
             "losses": list(self.losses),
             "step_time_s": float(np.median(timed)),
             "host_time_s": float(np.median(self.host_times or [0.0])),
             "update_time_s": float(np.median(updates)),
             "setup_s": sum(self.stage_times.values()),
-            "pipeline": False,
-            "sampler_workers": 0,
+            "pipeline": bool(pcfg.enabled),
+            "sampler_workers": pcfg.num_workers if pcfg.enabled else 0,
             "samples_per_s": float(samples_per_s),
-            "overlap_fraction": 0.0,  # serial loop: nothing overlaps
-            "queue_bytes_per_step": 0.0,
+            "overlap_fraction": float(overlap),
+            # mean pickled bytes per worker→consumer queue item — ~1e2 with
+            # the batch arena (SlotRef descriptors), ~1e6 without (ndarrays)
+            "queue_bytes_per_step": (
+                float(np.mean(self._queue_bytes)) if self._queue_bytes else 0.0),
             "hit_rates": self.engine.cache.hit_rates(),
             "partitioning": self.mp.summary(),
             "meta_local": self.meta_local,
@@ -585,6 +767,9 @@ class Heta:
             "residency": emb["residency"],
         })
         self._steps_done = int(extra.get("steps_done", step))
+        # the persistent pool (if any) is positioned at the pre-restore
+        # step; tear it down so the next fit respawns aligned
+        self.close_pipeline()
         return step
 
     def _maybe_checkpoint(self) -> None:
@@ -639,6 +824,143 @@ class Heta:
 
     def _next_batch(self):
         return self._batch_for_step(self._steps_done)
+
+    # -- the sampler worker pool ------------------------------------------------
+
+    def _acquire_pool(self, start_step: int):
+        """The persistent sampler pool positioned at ``start_step``.
+
+        Spawning workers and exporting the shm store cost about a second;
+        one pool therefore serves consecutive ``fit()`` calls as long as the
+        requested start lines up with where the pool's stripe left off
+        (tracked in ``_pool_cache``) and the worker count is unchanged.
+        Misalignment — a serial ``step()`` in between, a config change, a
+        prior failure — tears the old pool down and spawns a fresh one.
+        ``close_pipeline()`` (also invoked on fit errors) releases
+        everything explicitly; an atexit hook is the fallback."""
+        from repro_torch.data.worker_pool import WorkerPool
+
+        pcfg = self.config.pipeline
+        if self._pool_cache is not None:
+            store, arena, pool, next_step, workers = self._pool_cache
+            if (workers == pcfg.num_workers and next_step == start_step
+                    and not pool._closed):
+                return pool, arena
+            self.close_pipeline()
+        store, arena, task = self._pool_task(
+            self._schedule(start_step), self.config.run.seed + 1,
+            recipe=self.executor.worker_stage_recipe(self, self.plan),
+            faults=self.fault_plan,
+        )
+        try:
+            pool = WorkerPool(task, num_workers=pcfg.num_workers,
+                              depth=pcfg.depth, num_items=None,
+                              **self._supervision_kw(arena))
+        except BaseException:
+            store.unlink()
+            if arena is not None:
+                arena.unlink()
+            raise
+        self._pool_cache = [store, arena, pool, start_step, pcfg.num_workers]
+        if self._pool_atexit_cb is None:
+            # scripts that train and simply exit must not leave the store to
+            # the resource tracker's leaked-segment shutdown path (it cleans
+            # up, but warns); weakref so the hook never pins the session
+            ref = weakref.ref(self)
+
+            def _cleanup(_ref=ref):
+                sess = _ref()
+                if sess is not None:
+                    sess.close_pipeline()
+
+            atexit.register(_cleanup)
+            self._pool_atexit_cb = _cleanup
+        return pool, arena
+
+    def close_pipeline(self) -> None:
+        """Tear down the persistent sampler pool and unlink its shm store
+        and arena.  Idempotent; safe to call any time."""
+        cb, self._pool_atexit_cb = self._pool_atexit_cb, None
+        if cb is not None:
+            atexit.unregister(cb)  # don't accumulate dead hooks
+        if self._pool_cache is None:
+            return
+        store, arena, pool, _, _ = self._pool_cache
+        self._pool_cache = None
+        try:
+            pool.close()
+        finally:
+            try:
+                store.unlink()
+            finally:
+                if arena is not None:
+                    arena.unlink()
+
+    def _supervision_kw(self, arena) -> Dict:
+        """WorkerPool supervision kwargs from ``FaultConfig`` (DESIGN.md
+        §12): restart budget, backoff, and the death hook that poisons the
+        dead worker's arena sub-ring so stale ``SlotRef``\\ s fail loudly
+        before the replacement replays the stripe."""
+        fcfg = self.config.faults
+        kw = dict(max_restarts=fcfg.max_worker_restarts,
+                  restart_backoff_s=fcfg.worker_backoff_s)
+        if arena is not None:
+            kw["on_worker_death"] = arena.invalidate_worker_slots
+        return kw
+
+    def _pool_task(self, schedule, sampler_seed: int, recipe=None, faults=None):
+        """Shared-memory graph store, batch arena and picklable sampling task
+        for a worker pool following ``schedule`` (the caller owns both:
+        ``_acquire_pool`` parks them in ``_pool_cache``, ``evaluate`` unlinks
+        per call).  Staging moves into the workers when the executor
+        provides a ``recipe`` — exactly the tables its branches read travel
+        with the batch pipeline; with ``recipe=None`` workers sample only.
+
+        With ``pipeline.arena`` (default) batches flow through a fixed-slot
+        shm ring buffer (DESIGN.md §11): the tables live in the arena
+        segment — seqlock-republishable when learnable tables train under
+        the ``"stale"`` policy — and the queues carry only ``SlotRef``
+        descriptors.  ``arena=False`` pickles batches through the queues
+        (tables exported read-only into the graph store)."""
+        from repro_torch.data.staging import arena_fields
+        from repro_torch.data.worker_pool import SampleStageTask
+        from repro_torch.graph.shm import create_arena, share_graph
+
+        pcfg = self.config.pipeline
+        tables = None
+        if recipe is not None:
+            snapshot = self.engine.tables_snapshot()
+            tables = {t: snapshot[t] for t in recipe.table_types()}
+        arena = None
+        if pcfg.arena:
+            store = share_graph(self.graph, include_features=False)
+            try:
+                probe = self._batch_for_step(0)  # padded shapes: any step works
+                mutable = (recipe is not None
+                           and bool(getattr(self.plan, "learn_feats", False)))
+                arena = create_arena(
+                    arena_fields(probe, recipe=recipe, tables=tables),
+                    num_workers=pcfg.num_workers, depth=pcfg.depth,
+                    tables=tables, tables_mutable=mutable,
+                )
+            except BaseException:
+                store.unlink()
+                raise
+        else:
+            store = share_graph(self.graph, include_features=False, tables=tables)
+        task = SampleStageTask(
+            handle=store.handle,
+            spec=self.spec,
+            batch_size=self.config.data.batch_size,
+            sampler_seed=sampler_seed,
+            schedule=schedule,
+            recipe=recipe,
+            arena=arena.handle if arena is not None else None,
+            faults=faults,
+            write_timeout_s=self.config.faults.arena_write_timeout_s,
+            pin_cpus=pcfg.pin_workers,
+        )
+        return store, arena, task
 
     # -- stage 6: the online inference tier (repro_torch.serve) ----------------
 
@@ -699,14 +1021,18 @@ class Heta:
             retry_backoff_ms=scfg.retry_backoff_ms,
             breaker_threshold=scfg.breaker_threshold,
             breaker_cooldown_ms=scfg.breaker_cooldown_ms,
+            faults=self.fault_plan,
         )
         kw.update(overrides)
         self._server = EmbeddingServer(self.embedding_store, **kw)
         return self._server
 
     def close_serving(self) -> None:
-        """Stop the embedding server and drop the store.  Idempotent."""
+        """Stop the embedding server and release the store (unlinking its
+        shm segment when shm-backed).  Idempotent."""
         srv, self._server = self._server, None
         if srv is not None:
             srv.close()
-        self.embedding_store = None
+        store, self.embedding_store = self.embedding_store, None
+        if store is not None:
+            store.close()

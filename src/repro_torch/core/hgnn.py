@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -219,9 +220,14 @@ class BatchArrays:
 
 
 def batch_to_arrays(batch: SampledBatch, device) -> BatchArrays:
-    """Copy a batch's index arrays (and nothing else) to ``device``."""
+    """Copy a batch's index arrays (and nothing else) to ``device``.  A
+    read-only array (a view into a batch-arena slot) is copied first, so no
+    tensor aliases slot memory."""
     def put(a, dtype):
-        return torch.as_tensor(a).to(device=device, dtype=dtype)
+        a = np.asarray(a)
+        if not a.flags.writeable:
+            a = a.copy()
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
 
     return BatchArrays(
         seeds=put(batch.seeds, torch.long),

@@ -289,14 +289,22 @@ def stack_recipe(plan: StackedPlan) -> StackRecipe:
     return recipe
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``device``: on a GPU through pinned
-    memory with an asynchronous copy on the current stream (PyTorch keeps
-    the pinned buffer until the copy is done); on the CPU without a copy."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+def host_to_device(host: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Staged host arrays as tensors on ``device``, none of them aliasing
+    the host memory (which may be a read-only view into a batch-arena
+    slot, handed back to its writer once the next batch is drawn).  On a
+    GPU each array is copied into a pinned buffer, then to the card
+    asynchronously on the current stream (the caching host allocator keeps
+    the buffer until that copy is done); on the CPU into a fresh tensor."""
+    device = torch.device(device)
+    pinned = device.type == "cuda"
+    out = {}
+    for k, a in host.items():
+        t = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                        pin_memory=pinned)
+        np.copyto(t.numpy(), a, casting="no")
+        out[k] = t.to(device, non_blocking=True) if pinned else t
+    return out
 
 
 def stack_batch(
@@ -309,9 +317,7 @@ def stack_batch(
     :func:`repro_torch.data.staging.stack_batch_host`, then one copy per
     array to ``device``.  ``tables`` holds a feature table for every node
     type (learnable tables included — the embed engine supplies them)."""
-    device = torch.device(device)
-    host = stack_batch_host(stack_recipe(plan), batch, tables)
-    return {k: _to_device(v, device) for k, v in host.items()}
+    return host_to_device(stack_batch_host(stack_recipe(plan), batch, tables), device)
 
 
 # --------------------------------------------------------------------------

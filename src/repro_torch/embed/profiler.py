@@ -32,6 +32,7 @@ from repro_torch.graph.sampler import NeighborSampler, SampleSpec
 __all__ = [
     "HotnessProfile",
     "presample_hotness",
+    "presample_hotness_pooled",
     "measure_miss_penalty",
     "analytic_miss_penalty",
     "MissPenaltyProfile",
@@ -84,6 +85,59 @@ def presample_hotness(
             done += 1
             if max_batches and done >= max_batches:
                 return HotnessProfile(counts)
+    return HotnessProfile(counts)
+
+
+def presample_hotness_pooled(
+    graph: HetGraph,
+    spec: SampleSpec,
+    batch_size: int,
+    num_workers: int,
+    epochs: int = 2,
+    max_batches: Optional[int] = None,
+    seed: int = 7,
+    depth: int = 2,
+) -> HotnessProfile:
+    """:func:`presample_hotness` over the sampler worker pool.
+
+    The §6 sweep is the same ``batch_at`` walk the training pool runs
+    (epoch ``ep`` shuffles with ``seed + ep``, i.e. ``seed_stride=1``), and
+    visit counting is an order-independent sum — each worker accumulates
+    its stripe's counts locally and ships one partial dict at stripe end,
+    so the summed profile is bit-identical to the serial loop at any worker
+    count."""
+    from repro_torch.data.worker_pool import EpochSchedule, HotnessCountTask, WorkerPool
+    from repro_torch.graph.shm import share_graph
+
+    if num_workers < 1:
+        return presample_hotness(graph, spec, batch_size, epochs=epochs,
+                                 max_batches=max_batches, seed=seed)
+    counts = {t: np.zeros(n, dtype=np.int64) for t, n in graph.num_nodes.items()}
+    steps_per_epoch = NeighborSampler(graph, spec, batch_size,
+                                      seed=seed).steps_per_epoch()
+    n = epochs * steps_per_epoch
+    if max_batches:
+        n = min(n, max_batches)
+    if n <= 0:
+        return HotnessProfile(counts)
+    store = share_graph(graph, include_features=False)
+    try:
+        task = HotnessCountTask(
+            handle=store.handle, spec=spec, batch_size=batch_size,
+            sampler_seed=seed,
+            schedule=EpochSchedule(epoch_seed_base=seed,
+                                   steps_per_epoch=steps_per_epoch,
+                                   seed_stride=1),
+            num_items=n, num_workers=num_workers,
+        )
+        with WorkerPool(task, num_workers=num_workers, depth=depth,
+                        num_items=n, name="hotness-pool") as pool:
+            for partial in pool:
+                if partial is not None:
+                    for t, c in partial.items():
+                        counts[t] += c
+    finally:
+        store.unlink()
     return HotnessProfile(counts)
 
 

@@ -21,7 +21,10 @@ live here:
   * **launch accounting** — each kernel registers a :class:`KernelInfo`
     in :data:`KERNELS`; its wrapper calls :meth:`KernelInfo.record` exactly
     where it launches the kernel, so a run can show which kernels its path
-    went through.
+    went through.  The counts take a lock: launches come from the trainer's
+    thread and from a server's flush thread, and a count must not lose an
+    increment whichever thread launches (the pipeline's producer thread
+    stages on the host and launches none).
   * **launch checks** — :func:`check_launch` turns a non-zero CUDA status
     returned by a launch into :class:`KernelLaunchError`.
 """
@@ -31,6 +34,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -66,12 +70,18 @@ class KernelInfo:
     shapes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     def record(self, shape: Tuple[int, ...]) -> None:
-        self.launches += 1
-        self.shapes[tuple(int(x) for x in shape)] += 1
+        key = tuple(int(x) for x in shape)
+        with _COUNT_LOCK:
+            self.launches += 1
+            self.shapes[key] += 1
 
     def reset(self) -> None:
-        self.launches = 0
-        self.shapes.clear()
+        with _COUNT_LOCK:
+            self.launches = 0
+            self.shapes.clear()
+
+
+_COUNT_LOCK = threading.Lock()
 
 
 KERNELS: Dict[str, KernelInfo] = {}

@@ -11,11 +11,19 @@ Usage:
   python -m repro_torch.launch.train --model hgt --scale 0.1 --batch-size 1024
   python -m repro_torch.launch.train --device cpu --scale 0.002 --steps 2
   python -m repro_torch.launch.train --executor raf --scale 0.1 --batch-size 1024
+  python -m repro_torch.launch.train --device cpu --scale 0.002 --steps 4 \
+      --pipeline --num-workers 2 --snapshot-policy fresh
+  python -m repro_torch.launch.train --shm-cleanup --device cpu --scale 0.002
 
 Prints per-step losses, then the result dict as JSON and the final loss.
-The reference CLI's ``--shm-cleanup`` has no counterpart: the port has no
-shared-memory stores yet.  Nor have its legacy aliases ``--naive`` and
-``--hotness-only``: use ``--placement naive`` and ``--cache-policy hotness``.
+``--pipeline`` overlaps host sampling and staging with the device step (a
+producer thread, or ``--num-workers`` sampler processes over shared
+memory).  ``--shm-cleanup`` first unlinks the shared-memory segments that
+crashed runs of the port left in ``/dev/shm`` (names ``heta-tshm-<pid>-*``
+whose creator is gone), then trains as usual; the reference's flag also
+sweeps its on-disk mmap stores, which the port does not have yet.  The
+reference's legacy aliases ``--naive`` and ``--hotness-only`` have no
+counterpart: use ``--placement naive`` and ``--cache-policy hotness``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (default: cuda; cpu runs the plain "
                          "PyTorch path)")
     add_config_args(ap)
+    ap.add_argument("--shm-cleanup", action="store_true",
+                    help="sweep orphaned /dev/shm segments left by crashed runs "
+                         "of the port, then train as usual")
     return ap
 
 
@@ -43,6 +54,12 @@ def main(argv=None) -> dict:
 
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.shm_cleanup:
+        from repro_torch.graph.shm import cleanup_stale_segments
+
+        removed = cleanup_stale_segments()
+        print(f"shm-cleanup: removed {len(removed)} stale segment(s)"
+              + "".join(f"\n  {n}" for n in removed))
     cfg = config_from_args(args)
     if cfg.run.executor not in executors.available():
         ap.error(f"unknown --executor {cfg.run.executor!r}; "

@@ -17,8 +17,10 @@ starts a server over it.
 from repro_torch.serve.full_graph import (
     EmbeddingStore,
     bounded_graph,
+    exhaustive_batch,
     exhaustive_fanouts,
     infer_all,
+    spmd_logits_for_batch,
 )
 from repro_torch.serve.server import (
     EmbeddingServer,
@@ -34,6 +36,8 @@ __all__ = [
     "ServeResult",
     "ServeStats",
     "bounded_graph",
+    "exhaustive_batch",
     "exhaustive_fanouts",
     "infer_all",
+    "spmd_logits_for_batch",
 ]

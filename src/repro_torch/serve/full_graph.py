@@ -24,7 +24,14 @@ copied to the device, aggregated there, and copied back.  The store
 records the time of each of those phases (``EmbeddingStore.timings``).
 
 The materialized :class:`EmbeddingStore` holds one float32 host array per
-node type (pre-ReLU top-layer representations) plus the classifier head.
+node type (pre-ReLU top-layer representations) plus the classifier head;
+with ``shm=True`` those arrays live in one shared-memory segment
+(``repro_torch.graph.shm.share_arrays``) that another process maps zero-copy
+through :meth:`EmbeddingStore.attach`.
+
+:func:`exhaustive_batch` and :func:`spmd_logits_for_batch` are the
+minibatch side of the serving tier's parity checks: a batch holding every
+neighbor of its seeds, and its logits through the training step's forward.
 """
 
 from __future__ import annotations
@@ -39,13 +46,16 @@ import torch
 from repro_torch.data.staging import _padded_gather
 from repro_torch.device import resolve_device
 from repro_torch.graph.hetgraph import CSR, HetGraph
-from repro_torch.graph.sampler import SampleSpec
+from repro_torch.graph.sampler import Level, SampledBatch, SampleSpec
+from repro_torch.graph.shm import ArraysHandle, SharedArrays, attach_arrays, share_arrays
 
 __all__ = [
     "EmbeddingStore",
     "infer_all",
     "exhaustive_fanouts",
+    "exhaustive_batch",
     "bounded_graph",
+    "spmd_logits_for_batch",
 ]
 
 # cap on one chunk's gathered-neighbor tensor [n_sel, block, f, d_in]; the
@@ -130,6 +140,36 @@ def bounded_graph(graph: HetGraph, cap: int) -> HetGraph:
     )
 
 
+def exhaustive_batch(
+    graph: HetGraph, spec: SampleSpec, seeds: np.ndarray
+) -> SampledBatch:
+    """A :class:`SampledBatch` whose levels hold *full* neighbor lists.
+
+    Requires ``spec.fanouts >= exhaustive_fanouts(graph, spec)`` per level.
+    The minibatch forward on such a batch sees exactly the neighborhoods the
+    layer-wise engine aggregates — the per-node parity fixture."""
+    seeds = np.asarray(seeds, dtype=np.int64)
+    levels: List[Level] = []
+    prev_nids: List[np.ndarray] = [seeds]
+    prev_mask: List[np.ndarray] = [np.ones(len(seeds), dtype=bool)]
+    for d, branches in enumerate(spec.levels, start=1):
+        f = spec.fanouts[d - 1]
+        nids = np.zeros((len(branches), len(prev_nids[0]) * f), dtype=np.int64)
+        mask = np.zeros_like(nids, dtype=bool)
+        for b, bs in enumerate(branches):
+            csr = graph.relations[bs.rel]
+            idx, m = _full_neighbors(
+                csr, prev_nids[bs.parent], prev_mask[bs.parent], f
+            )
+            nids[b] = idx.reshape(-1)
+            mask[b] = m.reshape(-1)
+        levels.append(Level(nids=nids, mask=mask))
+        prev_nids = [nids[b] for b in range(len(branches))]
+        prev_mask = [mask[b] for b in range(len(branches))]
+    labels = graph.labels[seeds]
+    return SampledBatch(spec, seeds, labels, levels)
+
+
 # --------------------------------------------------------------------------
 # the materialized store
 # --------------------------------------------------------------------------
@@ -146,7 +186,9 @@ class EmbeddingStore:
     (``None``: the GPU, as :func:`~repro_torch.device.resolve_device` says).
     ``timings`` holds the seconds :func:`infer_all` spent per phase
     (``host_gather_s``, ``h2d_s``, ``compute_s``, ``d2h_s``; the device
-    phases timed with CUDA events on a GPU)."""
+    phases timed with CUDA events on a GPU).  When shm-backed, ``handle``
+    is picklable and :meth:`attach` maps the store zero-copy in another
+    process; :meth:`close` unlinks (owner) or unmaps (attached)."""
 
     target_type: str
     num_classes: int
@@ -156,6 +198,8 @@ class EmbeddingStore:
     head: Dict[str, np.ndarray]
     device: Optional[torch.device] = None
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+    handle: Optional[ArraysHandle] = None
+    _segment: object = None  # SharedArrays (owner) | AttachedArrays | None
     _head_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False)
 
@@ -167,10 +211,11 @@ class EmbeddingStore:
         return self.embeddings[ntype][np.asarray(nids)]
 
     def head_on_device(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The head's (w, b) as tensors on ``device`` (copied once)."""
+        """The head's (w, b) as tensors on ``device``, copied once (also on
+        the CPU: an attached store's arrays are read-only shm views)."""
         if self._head_dev is None:
             self._head_dev = tuple(
-                torch.from_numpy(np.ascontiguousarray(self.head[k])).to(self.device)
+                torch.from_numpy(np.array(self.head[k])).to(self.device)
                 for k in ("w", "b"))
         return self._head_dev
 
@@ -184,6 +229,59 @@ class EmbeddingStore:
     def nbytes(self) -> int:
         return sum(a.nbytes for a in self.embeddings.values()) + sum(
             a.nbytes for a in self.head.values())
+
+    @classmethod
+    def attach(cls, handle: ArraysHandle, device=None) -> "EmbeddingStore":
+        """Map a shm-backed store exported by :func:`infer_all` zero-copy;
+        ``device`` is where :meth:`scores` runs (``None``: the GPU)."""
+        seg = attach_arrays(handle)
+        meta = handle.meta_dict
+        embeddings = {k[len("emb/"):]: v for k, v in seg.arrays.items()
+                      if k.startswith("emb/")}
+        return cls(
+            target_type=meta["target_type"],
+            num_classes=int(meta["num_classes"]),
+            hidden=int(meta["hidden"]),
+            embeddings=embeddings,
+            layer_of={t: int(meta[f"layer/{t}"]) for t in embeddings},
+            head={"w": seg.arrays["head/w"], "b": seg.arrays["head/b"]},
+            device=device,
+            handle=handle,
+            _segment=seg,
+        )
+
+    def close(self) -> None:
+        """Release shm backing: owners unlink the segment, attached readers
+        unmap their view.  Idempotent; plain-array stores are a no-op."""
+        seg, self._segment = self._segment, None
+        if seg is None:
+            return
+        self.embeddings = {}
+        self.head = {}
+        if isinstance(seg, SharedArrays):
+            seg.unlink()
+        else:
+            seg.close()
+
+
+def _shm_backed(store: EmbeddingStore) -> EmbeddingStore:
+    """Re-materialize a store's arrays inside one shared segment."""
+    arrays = {f"emb/{t}": a for t, a in store.embeddings.items()}
+    arrays["head/w"] = store.head["w"]
+    arrays["head/b"] = store.head["b"]
+    meta = {
+        "target_type": store.target_type,
+        "num_classes": str(store.num_classes),
+        "hidden": str(store.hidden),
+        **{f"layer/{t}": str(l) for t, l in store.layer_of.items()},
+    }
+    seg = share_arrays(arrays, meta=meta)
+    views = seg.arrays()
+    store.embeddings = {t: views[f"emb/{t}"] for t in store.embeddings}
+    store.head = {"w": views["head/w"], "b": views["head/b"]}
+    store.handle = seg.handle
+    store._segment = seg
+    return store
 
 
 # --------------------------------------------------------------------------
@@ -307,11 +405,10 @@ def infer_all(
     kernel's shared memory (f <= 392 for HGT and f <= 792 for R-GAT at
     hidden 64, 4 heads), else
     :class:`~repro_torch.kernels.stacked_relation_agg.FanoutTooWideError`;
-    cap the graph's in-degree (:func:`bounded_graph`) beyond that."""
-    if shm:
-        raise NotImplementedError(
-            "serve.shm: the shm-backed embedding store arrives with the "
-            "port's shared-memory slice; use shm=False")
+    cap the graph's in-degree (:func:`bounded_graph`) beyond that.  With
+    ``shm=True`` the store's arrays move into one shared-memory segment
+    (:meth:`EmbeddingStore.attach` maps it from another process; the
+    store's :meth:`~EmbeddingStore.close` unlinks it)."""
     from repro_torch.kernels.stacked_relation_agg import stacked_agg, stage_slot_u
 
     device = resolve_device(device)
@@ -400,7 +497,7 @@ def infer_all(
         timings["h2d_s"] += marks.seconds(m0, m1)
         timings["compute_s"] += marks.seconds(m1, m2)
         timings["d2h_s"] += marks.seconds(m2, m3)
-    return EmbeddingStore(
+    store = EmbeddingStore(
         target_type=spec.target_type,
         num_classes=int(plan.cfg.num_classes),
         hidden=hidden,
@@ -410,3 +507,29 @@ def infer_all(
         device=device,
         timings=timings,
     )
+    return _shm_backed(store) if shm else store
+
+
+# --------------------------------------------------------------------------
+# the minibatch reference (parity fixture for tests)
+# --------------------------------------------------------------------------
+
+
+def spmd_logits_for_batch(plan, stacks, batch, tables, kernels=None) -> np.ndarray:
+    """Logits of one batch through the minibatch ``raf_spmd`` forward.
+
+    The exact math of the training step's forward (the same ``stacked_agg``
+    dispatch, the head after the root sum), on the device the stacks live
+    on, for the serving tier's Prop-1 parity checks.  Requires a
+    single-shard plan (fold the assignment to 1 before ``build_plan``), as
+    the reference's does."""
+    from repro_torch.core import raf_spmd
+
+    if plan.num_shards != 1:
+        raise ValueError(
+            f"parity reference needs a 1-shard plan, got {plan.num_shards}")
+    device = stacks["head"]["w"].device
+    arrays = raf_spmd.stack_batch(plan, batch, tables, device)
+    with torch.no_grad():
+        logits = raf_spmd.raf_spmd_logits(plan, stacks, arrays, True, kernels)
+    return logits.cpu().numpy()

@@ -305,14 +305,16 @@ class EmbeddingServer:
         retry_backoff_ms: float = 1.0,
         breaker_threshold: int = 3,
         breaker_cooldown_ms: float = 1000.0,
+        faults=None,
     ):
         self.store = store
-        # degradation policy (DESIGN.md §12)
+        # degradation policy (DESIGN.md §12) + deterministic fault plan
         self.deadline_ms = float(deadline_ms)
         self.flush_retries = int(flush_retries)
         self.retry_backoff_ms = float(retry_backoff_ms)
         self.breaker_threshold = int(breaker_threshold)
         self.breaker_cooldown_ms = float(breaker_cooldown_ms)
+        self.faults = faults
         self.breaker_state = "closed"
         self.breaker_trips = 0
         self.breaker_recoveries = 0
@@ -320,6 +322,7 @@ class EmbeddingServer:
         self.retry_count = 0
         self._consec_failures = 0
         self._breaker_opened_t = 0.0
+        self._flush_index = 0  # attempted flushes (fault-plan coordinate)
         self.cache = _build_serve_cache(store, cache_mb, kernels, hotness)
         # online re-admission from the served-id trace: every fetch_many
         # already bumps the cache's access counters, so after every
@@ -397,8 +400,25 @@ class EmbeddingServer:
     def _primary(self, items) -> List[ServeResult]:
         """The device hot path: cache gather + device scoring.  An
         exception here is a flush failure for the retry/breaker state
-        machine, except a kernel build or launch error, which propagates."""
+        machine, except a kernel build or launch error, which propagates.
+        The fault plan's ``fail_flush``/``delay_flush`` triggers fire here,
+        at the ``fetch_many`` call site, exactly as a transient device or
+        cache error would; the plan's coordinate is the primary-*attempt*
+        index (each retry advances it, so a ``count=1`` fault is a clean
+        transient and ``count >= breaker_threshold * (flush_retries + 1)``
+        forces a trip)."""
         requests, offsets = self._group(items)
+        if self.faults is not None and self.faults:
+            from repro_torch.data.faults import InjectedFault
+
+            fi = self._flush_index
+            self._flush_index += 1
+            delay = self.faults.flush_delay(fi)
+            if delay > 0:
+                time.sleep(delay)
+            if self.faults.flush_fault(fi) is not None:
+                raise InjectedFault(
+                    f"scheduled fail_flush fault at primary attempt {fi}")
         rows = self.cache.fetch_many(requests)  # one gather per type
         target = self.store.target_type
         scores = (

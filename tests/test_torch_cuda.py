@@ -1112,3 +1112,75 @@ def test_cuda_lm_prefill_launches_the_kernel_and_matches_the_cpu(cuda_device):
         out[name] = torch.cat(steps, 1).cpu()
     assert out["gpu_launches"] == cfg.num_layers and out["cpu_launches"] == 0
     np.testing.assert_allclose(out["gpu"].numpy(), out["cpu"].numpy(), atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the asynchronous host pipeline on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learn,pipeline", [
+    (True, dict(snapshot="fresh")),
+    (True, dict(num_workers=2, snapshot="fresh")),
+    (False, dict()),
+    (False, dict(num_workers=2)),
+], ids=["thread-fresh", "pool-fresh", "thread-frozen", "pool-frozen"])
+def test_cuda_pipelined_fit_equals_serial(cuda_device, learn, pipeline):
+    """Pipelined fits on the card (a producer thread staging and copying
+    to the device, or two spawned sampler workers staging into the batch
+    arena) give the serial fit's losses bit for bit, through the same
+    kernels."""
+    import os
+
+    from repro_torch.api import Heta, HetaConfig
+    from repro_torch.graph.shm import live_segments
+
+    cfg = HetaConfig().updated(data=dict(scale=0.002, fanouts=(3, 2), batch_size=16),
+                               partition=dict(num_partitions=2), cache=dict(cache_mb=1),
+                               model=dict(train_learnable=learn), run=dict(steps=4))
+    serial = Heta(cfg, device=cuda_device).run()["losses"]
+    sess = Heta(cfg.updated(pipeline=dict(enabled=True, **pipeline)), device=cuda_device)
+    try:
+        sess.build_graph(), sess.partition(), sess.profile_and_cache(), sess.compile()
+        kops.reset_launch_counts()
+        res = sess.fit()
+        launched = {k: v.launches for k, v in kops.KERNELS.items()}
+    finally:
+        sess.close_pipeline()
+    assert res["losses"] == serial
+    assert launched["stacked_mean_linear"] > 0 and launched["stacked_mean_linear_dh"] > 0
+    if learn:
+        assert launched["gather_rows"] > 0
+    assert not live_segments(f"heta-tshm-{os.getpid():x}-")
+
+
+@pytest.mark.cuda
+def test_cuda_stage_from_host_copies_out_of_the_slot(cuda_device):
+    """Worker-staged host arrays (read-only views into an arena slot) reach
+    the card as CUDA tensors with the slot's values, and a later write into
+    the slot does not reach them: nothing aliases slot memory."""
+    from repro_torch.core import raf_spmd
+    from repro_torch.graph.shm import create_arena
+
+    r = np.random.default_rng(0)
+    fields = {"h/qfeat1": r.standard_normal((2, 3, 16, 8)).astype(np.float32),
+              "h/mask1": r.random((2, 3, 16)) > 0.5,
+              "h/labels": r.integers(0, 9, 16)}
+    with create_arena(fields, num_workers=1, depth=1) as arena:
+        arena.begin_write(0, 0)
+        views = arena.slot_views(0, writable=True)
+        for k, v in fields.items():
+            views[k][...] = v
+        arena.end_write(0, 0)
+        host = {k[2:]: v for k, v in arena.resolve(0, 0).items()}
+        assert not any(v.flags.writeable for v in host.values())
+        got = raf_spmd.host_to_device(host, cuda_device)
+        torch.cuda.synchronize()
+        for k, v in views.items():
+            v[...] = 0  # the writer reuses the slot
+        for k, v in fields.items():
+            t = got[k[2:]]
+            assert t.is_cuda and t.dtype == torch.from_numpy(v).dtype
+            np.testing.assert_array_equal(t.cpu().numpy(), v)
+        del host, views

@@ -149,3 +149,59 @@ def test_chip_smoke_fails_without_gpu_and_outside_checkout(tmp_path):
     for out in runs:
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_sampler_worker_stays_torch_free(tmp_path):
+    """What a spawned sampler worker pays: in a fresh process, unpickling a
+    ``SampleStageTask`` (with its staging recipe, batch arena and fault
+    plan), its ``setup`` and one item import neither torch nor JAX nor the
+    reference package; the slot it writes holds the consumer's staging of
+    the same batch, bit for bit."""
+    import pickle
+
+    import numpy as np
+
+    from repro_torch.data.faults import FaultPlan, FaultSpec
+    from repro_torch.data.staging import stack_batch_host, unpack_slot
+
+    sess = api.Heta(api.HetaConfig().updated(
+        data=dict(scale=0.002, fanouts=(3, 2), batch_size=8),
+        model=dict(train_learnable=False),
+        pipeline=dict(enabled=True, num_workers=1)), device="cpu")
+    sess.build_graph(), sess.partition(), sess.profile_and_cache(), sess.compile()
+    recipe = sess.executor.worker_stage_recipe(sess, sess.plan)
+    assert recipe is not None
+    store, arena, task = sess._pool_task(
+        sess._schedule(0), sess.config.run.seed + 1, recipe=recipe,
+        faults=FaultPlan((FaultSpec("raise_item", step=99),)))
+    try:
+        blob = tmp_path / "task.pkl"
+        blob.write_bytes(pickle.dumps(task))
+        code = (
+            "import json, pickle, sys\n"
+            f"task = pickle.loads(open({str(blob)!r}, 'rb').read())\n"
+            "task.bind_worker(0, 0)\n"
+            "task.setup()\n"
+            "ref = task(0)\n"
+            "task.teardown()\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('torch', 'jax', 'jaxlib', 'repro'))\n"
+            "print(json.dumps({'slot': ref.slot, 'use': ref.use, 'staged': ref.staged,\n"
+            "                  'bad': bad}))\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             env=env, cwd=str(REPO), timeout=300)
+        assert out.returncode == 0, out.stderr
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        assert res["bad"] == [] and res["staged"]
+        batch, host = unpack_slot(arena.resolve(res["slot"], res["use"]), sess.spec)
+        want = stack_batch_host(recipe, sess._batch_for_step(0),
+                                sess.engine.tables_snapshot())
+        assert set(host) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(host[k], v)
+        del batch, host
+    finally:
+        store.unlink()
+        arena.unlink()

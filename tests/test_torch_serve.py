@@ -198,6 +198,80 @@ def test_plan_and_stacks_match_reference(pair):
                 np.testing.assert_array_equal(port_stacks[layer][leaf].numpy(), np.asarray(v))
 
 
+def test_exhaustive_batch_and_parity_logits_match_reference(pair):
+    """The port's ``exhaustive_batch`` is the reference's array for array,
+    and its ``spmd_logits_for_batch`` gives the reference's logits (ROADMAP
+    tolerance 2e-5) and the layer-wise store's scores (Prop 1)."""
+    ref, g_ref, sess, g = pair
+    seeds = g.train_nodes[:16]
+    batch = fg.exhaustive_batch(g, sess.spec, seeds)
+    want = ref_fg.exhaustive_batch(g_ref, ref.spec, seeds)
+    for a, b in [(batch.seeds, want.seeds), (batch.labels, want.labels)] + [
+            (x, y) for la, lb in zip(batch.levels, want.levels)
+            for x, y in ((la.nids, lb.nids), (la.mask, lb.mask))]:
+        np.testing.assert_array_equal(a, b)
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+    ref_tables = ref.engine.tables_snapshot()
+    ref_logits = ref_fg.spmd_logits_for_batch(ref.plan.plan, ref.state["stacks"], want,
+                                              ref_tables, kernels=ref.config.kernels)
+    got = fg.spmd_logits_for_batch(sess.plan.plan, sess.state["stacks"], batch,
+                                   tables_from_reference(ref_tables),
+                                   kernels=sess.config.kernels)
+    assert got.shape == ref_logits.shape == (16, g.num_classes)
+    np.testing.assert_allclose(got, ref_logits, atol=2e-5, rtol=0)
+    store = sess.infer_all(node_block=64)
+    np.testing.assert_allclose(store.scores(seeds), got, **TOL)
+    sess.close_serving()
+    with pytest.raises(ValueError, match="1-shard"):
+        two = raf_spmd.build_plan(sess.spec, sess.assignment.fold(2, sess.spec),
+                                  sess.hgnn_cfg, sess.feat_dims)
+        fg.spmd_logits_for_batch(two, sess.state["stacks"], batch, ref_tables)
+
+
+def test_shm_store_equals_in_process_and_serves_through_one_retry(pair):
+    """``infer_all(shm=True)`` holds the in-process store's arrays bit for
+    bit in one shared segment, which attaches zero-copy and read-only; a
+    server over it with one scheduled ``fail_flush`` retries once, answers
+    every request from the store with no degraded answer, and closing the
+    session's serving unlinks the segment."""
+    from repro_torch.data.faults import FaultPlan, FaultSpec
+    from repro_torch.graph.shm import live_segments
+
+    ref, g_ref, sess, g = pair
+    plain = sess.infer_all(node_block=64)
+    assert plain.handle is None
+    shared = sess.infer_all(node_block=64, shm=True)
+    seg = shared.handle.segment
+    assert seg.startswith("heta-tshm-") and live_segments(seg) == [seg]
+    att = fg.EmbeddingStore.attach(shared.handle, device="cpu")
+    for st in (shared, att):
+        assert st.embeddings.keys() == plain.embeddings.keys()
+        assert st.layer_of == plain.layer_of
+        for t, a in plain.embeddings.items():
+            np.testing.assert_array_equal(st.embeddings[t], a)
+        for k in ("w", "b"):
+            np.testing.assert_array_equal(st.head[k], plain.head[k])
+    assert not att.embeddings[g.target_type].flags.writeable
+    ids = np.arange(8)
+    np.testing.assert_array_equal(att.scores(ids), plain.scores(ids))
+    att.close()
+    sess.fault_plan = FaultPlan((FaultSpec("fail_flush", step=0, count=1),))
+    try:
+        srv = sess.serve(max_batch=4, max_wait_ms=1, retry_backoff_ms=0.1)
+        rng = np.random.default_rng(3)
+        for _ in range(6):
+            nids = rng.integers(0, g.num_nodes[g.target_type], 4)
+            res = srv.query(nids, timeout=10)
+            np.testing.assert_array_equal(res.embeddings, plain.embeddings[g.target_type][nids])
+            np.testing.assert_allclose(res.scores, plain.scores(nids), **TOL)
+        stats = srv.stats()
+        assert (stats.retries, stats.degraded, stats.breaker_trips) == (1, 0, 0)
+    finally:
+        sess.fault_plan = None
+        sess.close_serving()
+    assert not live_segments(seg)
+
+
 def test_feature_cache_mixed_path_matches_reference():
     """Partial hits, misses and online re-admission: rows and counters
     equal the reference cache's for the same requests."""
@@ -404,11 +478,15 @@ def test_session_stage_guards_and_unported_options():
         sess.partition()
     with pytest.raises(HetaStageError, match="infer_all"):
         sess.serve()
-    with pytest.raises(NotImplementedError, match="shm"):
-        fg.infer_all(None, None, {}, {}, shm=True)
-    with pytest.raises(NotImplementedError, match="worker pool"):
-        s = Heta(HetaConfig().updated(pipeline=dict(enabled=True, num_workers=2)),
-                 device="cpu")
-        s.build_graph(fg.bounded_graph(make_dataset("ogbn-mag", scale=0.002), 4))
+    # the worker pool is ported: a pooled session's §6 pre-sampling sweep
+    # runs over it and allocates the cache exactly as the serial sweep
+    g = fg.bounded_graph(make_dataset("ogbn-mag", scale=0.002), 4)
+    reports = []
+    for pipeline in (dict(enabled=True, num_workers=2), dict()):
+        s = Heta(HetaConfig().updated(pipeline=pipeline), device="cpu")
+        s.build_graph(g)
         s.partition()
-        s.profile_and_cache()
+        reports.append(s.profile_and_cache())
+    assert reports[0].allocation_rows == reports[1].allocation_rows
+    for t, c in reports[1].hotness.counts.items():
+        np.testing.assert_array_equal(reports[0].hotness.counts[t], c)

@@ -402,8 +402,9 @@ def test_train_cli_runs_on_the_cpu_and_refuses_without_a_gpu(monkeypatch, capsys
 
 def test_later_slices_raise_named_errors():
     """Every executor the reference registers compiles (an unknown name
-    raises the named KeyError listing them); the host pipeline and the
-    data-parallel tier, later slices, raise named NotImplementedErrors."""
+    raises the named KeyError listing them); the data-parallel tier, a
+    later slice, raises a named NotImplementedError, while the host
+    pipeline (ported) trains and evaluates."""
     sess = _port_session()
     sess.build_graph(), sess.partition(), sess.profile_and_cache()
     with pytest.raises(KeyError, match="available: \\('raf', 'raf_spmd', 'serve', 'vanilla'\\)"):
@@ -411,15 +412,17 @@ def test_later_slices_raise_named_errors():
     sess.compile(executor="vanilla")
     assert sess.executor.name == "vanilla" and "bundle" in sess.state
     sess.compile()
-    for section, kw, name in (("pipeline", dict(enabled=True), "pipeline.enabled"),
-                              ("scale", dict(num_trainers=2), "scale.enabled")):
-        sess.config = sess.config.updated(**{section: kw})
-        with pytest.raises(NotImplementedError, match=name):
-            sess.fit()
-        with pytest.raises(NotImplementedError, match=name):
-            sess.evaluate()
-        sess.config = _port_session().config
+    sess.config = sess.config.updated(scale=dict(num_trainers=2))
+    with pytest.raises(NotImplementedError, match="scale.enabled"):
+        sess.fit()
+    with pytest.raises(NotImplementedError, match="scale.enabled"):
+        sess.evaluate()
+    sess.config = _port_session().config
     res = sess.fit(2)
     assert len(res["losses"]) == 2 and res["step_time_s"] > 0
     ev = sess.evaluate(num_batches=2)
     assert ev["num_batches"] == 2 and np.isfinite(ev["loss"])
+    sess.config = sess.config.updated(pipeline=dict(enabled=True))
+    res = sess.fit(1)
+    assert res["pipeline"] and len(res["losses"]) == 3
+    assert np.isfinite(sess.evaluate()["loss"])

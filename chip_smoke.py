@@ -93,6 +93,23 @@ non-zero exit and no result line):
      server over it answers 512 requests, and one with a scheduled
      fail_flush retries once with no degraded answer; no segment named with
      this process's pid is left;
+  4f. the data-parallel tier — phase 4's graph, full width, batch 1024,
+     frozen tables (the tier refuses trained ones), 20 steps a fit in 2
+     trainer processes on the one card (this process is rank 0, rank 1 is
+     spawned with its own CUDA context), each from reset launch counts:
+     R-GCN "global" over the shm store and over the on-disk mmap store
+     (losses bit-equal to phase 4e's frozen serial fit), R-GCN "local"
+     (the fit's own cross-rank check of losses and state hash; finite
+     losses; rank 0's step-0 sub-batch re-scored lower), HGT "global"
+     (bit-equal to a frozen HGT serial fit run here).  Both ranks must
+     launch the model's kernels (R-GCN 1 and 2; HGT 4, 5 and 1: with
+     frozen tables no gradient reaches the gathered features, and HGT's
+     q side reads only those, so its kernel 2 has nothing to compute),
+     rank 1 counting its own, and neither gather_rows; under "global" both
+     the same number of times.  Each run prints the fit's wall and steady ms a
+     step, rank 1's start, each rank's wall / host / device seconds and
+     the exchange's bytes a publication; then evaluate on each DP session,
+     and no segment or mmap store named with this process's pid is left;
   5. resume — a fresh session restores the step-10 checkpoint and trains
      to step 20; its losses must equal the uninterrupted run's bit for bit
      (every reduction on the path runs in a fixed order): R-GCN (5), HGT (5b);
@@ -1262,7 +1279,7 @@ def run_lm_reference(seed: int, steps: int = 8) -> dict:
 
 def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn",
                    executor: str = "raf_spmd", fuse_epilogue: bool = True,
-                   pipeline=None, learnable: bool = True):
+                   pipeline=None, learnable: bool = True, dp=None):
     from repro_torch.api import DataConfig, HetaConfig, ModelConfig
 
     cfg = HetaConfig(
@@ -1270,20 +1287,23 @@ def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn",
                         batch_size=batch_size),
         model=ModelConfig(model=model, train_learnable=learnable),
     ).updated(run=dict(executor=executor), kernels=dict(fuse_epilogue=fuse_epilogue))
+    if dp is not None:
+        cfg = cfg.updated(scale=dp)
     return cfg if pipeline is None else cfg.updated(pipeline=dict(enabled=True, **pipeline))
 
 
 def build_session(scale: float, device, max_degree: int = 16, batch_size: int = 1024,
                   model: str = "rgcn", executor: str = "raf_spmd", fuse_epilogue: bool = True,
-                  graph=None, pipeline=None, learnable: bool = True):
+                  graph=None, pipeline=None, learnable: bool = True, dp=None):
     """A compiled session; ``graph`` reuses a graph built (and bounded)
     before; ``pipeline`` (a dict of ``PipelineConfig`` fields) turns the
-    host pipeline on."""
+    host pipeline on; ``dp`` (a dict of ``ScaleConfig`` fields) the
+    data-parallel tier."""
     from repro_torch.api import Heta
     from repro_torch.serve import bounded_graph
 
     sess = Heta(session_config(scale, batch_size, model, executor, fuse_epilogue, pipeline,
-                               learnable),
+                               learnable, dp),
                 device=device)
     g = graph if graph is not None else bounded_graph(sess.build_graph(), max_degree)
     sess.build_graph(g)
@@ -1363,6 +1383,17 @@ TRAIN_KERNELS = {
              "stacked_mean_linear_dh"),
     "hgt": ("stacked_attn_epilogue", "stacked_attn_dh", "stacked_mean_linear",
             "stacked_mean_linear_dh"),
+}
+
+
+# and with frozen tables: no gradient flows into the gathered features, so
+# the backward kernels run only where the input is a hidden state (R-GCN's
+# kernel 2 and HGT's kernel 5 at the top level); the attention models' q
+# side reads gathered features at every level, so its kernel 2 never runs
+FROZEN_KERNELS = {
+    "rgcn": ("stacked_mean_linear", "stacked_mean_linear_dh"),
+    "rgat": ("stacked_attn_epilogue", "stacked_attn_dh", "stacked_mean_linear"),
+    "hgt": ("stacked_attn_epilogue", "stacked_attn_dh", "stacked_mean_linear"),
 }
 
 
@@ -1822,7 +1853,7 @@ def pipelined_fit(label: str, scale: float, graph, report: dict, pipeline=None,
     steps = sum(fits)
     check(len(losses) == steps and bool(np.isfinite(losses).all()),
           f"{label}: losses {losses}")
-    need = TRAIN_KERNELS[model] if learnable or model != "rgcn" else TRAIN_KERNELS[model][:2]
+    need = TRAIN_KERNELS[model] if learnable else FROZEN_KERNELS[model]
     for name in need:
         check(launches[name] > 0, f"kernel {name} was not launched by {label}")
     rep = np.median(sess.republish_times) * 1e3 if sess.republish_times else None
@@ -1993,6 +2024,192 @@ def run_pipeline(scale: float, report: dict, graph) -> dict:
     report["pipeline"]["shm store"] = dict(segment=seg, served=served, fail_flush=faulted)
     log(f"  shm store equal to the in-process one; served 512 + 512 requests (one retry "
         f"with the fault); no segment of pid {os.getpid()} left "
+        f"({time.perf_counter() - t_phase:.1f} s phase)")
+    return rgcn_shapes, hgt_shapes
+
+
+DP_RANKS = 2  # phase 4f's trainer processes, time-sharing the one card
+
+
+def own_stores() -> list:
+    """This process's on-disk mmap stores (the port's prefix and pid)."""
+    import os
+
+    from repro_torch.graph.mmap_store import live_stores
+
+    return live_stores(prefix=f"heta-tmmap-{os.getpid():x}-")
+
+
+def dp_fit(label: str, scale: float, graph, report: dict, model: str = "rgcn",
+           steps: int = 20, shapes_acc=None, **dp):
+    """One phase-4f fit: a frozen-table session on the card whose fit runs
+    in ``DP_RANKS`` trainer processes (this one is rank 0; ``dp`` holds the
+    other ``ScaleConfig`` fields), from reset launch counts.  Checks that
+    both ranks launched the model's kernels (rank 1 reports its own
+    counts, launch counters being per process) and no gather_rows, and
+    prints the fit's wall and steady ms a step, the ranks' start, each
+    rank's wall / host / device seconds and the exchange's bytes.  Rank 0
+    stamps the end of each step where it releases the step's exchange
+    slot (``DPExchange.ack``: its own steps after publishing, the others
+    after adopting).  Returns the session and its result dict."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import dp_trainer
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    t0 = time.perf_counter()
+    mode = dp.get("mode", "global")
+    sess, _ = build_session(scale, None, model=model, graph=graph, learnable=False,
+                            dp=dict(num_trainers=DP_RANKS, **dp))
+    check(sess.device.type == "cuda", f"{label}: session landed on {sess.device}")
+    check(not sess.plan.learn_feats, f"{label}: learnable tables train")
+    payload = sum(a.nbytes for a in dp_trainer._payload_template(sess, mode))
+    stamps = []
+    ack = dp_trainer.DPExchange.ack
+
+    def stamped(self, k):
+        ack(self, k)
+        stamps.append(time.perf_counter())
+
+    dp_trainer.DPExchange.ack = stamped
+    try:
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        res = sess.fit(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        dp_trainer.DPExchange.ack = ack
+    launches, shapes = launch_counts()
+    sc = res["scale"]
+    rank1 = sc["trainer_reports"][1]
+    launches1 = {k: v["launches"] for k, v in rank1["kernel_launches"].items()}
+    if shapes_acc is not None:
+        for name, c in shapes.items():
+            shapes_acc.setdefault(name, collections.Counter()).update(c)
+        for name, v in rank1["kernel_launches"].items():
+            shapes_acc.setdefault(name, collections.Counter()).update(
+                {tuple(x): n for x, n in v["shapes"]})
+    losses = res["losses"]
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"{label}: losses {losses}")
+    check(len(stamps) == steps, f"{label}: rank 0 released {len(stamps)} of {steps} steps")
+    for name in FROZEN_KERNELS[model]:
+        check(launches[name] > 0, f"kernel {name} was not launched by {label}'s rank 0")
+        check(launches1.get(name, 0) > 0, f"kernel {name} was not launched by {label}'s rank 1")
+    check(launches.get("gather_rows", 0) == 0 and launches1.get("gather_rows", 0) == 0,
+          f"{label}: gather_rows launched with frozen tables")
+    if mode == "global":  # each rank owns half the steps
+        check(launches["stacked_mean_linear"] == launches1["stacked_mean_linear"],
+              f"{label}: ranks 0 and 1 launched stacked_mean_linear "
+              f"{launches['stacked_mean_linear']} and {launches1['stacked_mean_linear']} times")
+    steady = (stamps[-1] - stamps[1]) / (steps - 2) * 1e3
+    ranks = {0: dict(wall_s=stamps[-1] - t1, host_s=float(sum(sess.host_times)),
+                     device_s=float(sum(sess.step_times)), steps=len(sess.step_times)),
+             1: dict(wall_s=rank1["wall_s"], host_s=rank1["host_s"],
+                     device_s=rank1["device_s"])}
+    m = dict(losses=losses, steps=steps, mode=mode, store=sc["store"], fit_wall_s=wall,
+             wall_ms_per_step=wall / steps * 1e3, steady_ms_per_step=steady,
+             steady_samples_per_s=sess.config.data.batch_size / steady * 1e3,
+             startup_s=sc["startup_s"][1], ranks=ranks, payload_bytes=payload,
+             launches={0: launches, 1: launches1}, state_sha=sc["state_sha"],
+             step_times=list(sess.step_times), host_times=list(sess.host_times))
+    log(f"  [{label}] {steps} steps in {wall:.3f} s wall ({m['wall_ms_per_step']:.3f} ms a "
+        f"step; steady {steady:.3f} ms a step over steps 2..{steps - 1}, "
+        f"{m['steady_samples_per_s']:.1f} samples/s); rank 1 started its loop "
+        f"{m['startup_s']:.3f} s after its spawn; exchange payload {payload} bytes a "
+        f"publication ({'the state' if mode == 'global' else 'each rank the gradients'})")
+    owned = {0: len(sess.host_times), 1: steps - len(sess.host_times) if mode == "global"
+             else steps}
+    for r, v in ranks.items():
+        log(f"  [{label}] rank {r}: wall_s {v['wall_s']:.3f} host_s {v['host_s']:.3f} "
+            f"device_s {v['device_s']:.3f} ({owned[r]} steps staged, "
+            f"{v['host_s'] / owned[r] * 1e3:.1f} ms host a step); launches "
+            f"{dict((k, n) for k, n in m['launches'][r].items() if n)}")
+    log(f"  [{label}] losses {losses[0]:.6f} -> {losses[-1]:.6f}; state "
+        f"{sc['state_sha'][:12]} on both ranks ({time.perf_counter() - t0:.1f} s)")
+    report.setdefault("dp", {})[label] = m
+    return sess, res
+
+
+def local_first_batch(sess, rank: int = 0):
+    """Rank ``rank``'s step-0 sub-batch of a ``"local"`` fit, drawn as
+    ``dp_trainer._dp_loop_local`` draws it."""
+    import dataclasses
+
+    from repro_torch.data import dp_trainer
+    from repro_torch.data.worker_pool import EpochSchedule
+    from repro_torch.graph.sampler import NeighborSampler
+
+    cfg = sess.config
+    owned = dp_trainer._hierarchy(sess).trainer_train_nodes(sess.graph, rank)
+    sampler = NeighborSampler(dataclasses.replace(sess.graph, train_nodes=owned), sess.spec,
+                              max(1, cfg.data.batch_size // DP_RANKS), seed=cfg.run.seed + 1)
+    es, idx = EpochSchedule(cfg.run.seed + 2 + 7919 * (rank + 1),
+                            sampler.steps_per_epoch()).seed_and_index(0)
+    return sampler.batch_at(idx, epoch_seed=es)
+
+
+def run_dp(scale: float, report: dict, graph, steps: int = 20) -> tuple:
+    """Phase 4f: the data-parallel tier, ``DP_RANKS`` trainer processes on
+    the one card over phase 4's graph with frozen tables: R-GCN "global"
+    over the shm and the mmap store (bit-equal to phase 4e's frozen serial
+    fit), R-GCN "local" (ranks agree; step 0's sub-batch re-scored lower),
+    HGT "global" (bit-equal to a frozen HGT serial fit run here); then
+    evaluate on each DP session, and no segment or store of this process
+    left.  Returns the shapes the R-GCN and HGT DP fits launched each
+    kernel at, both ranks summed."""
+    import os
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    serial = report["pipeline"]["frozen serial"]
+    log(f"  {DP_RANKS} ranks; the frozen serial loop (phase 4e): "
+        f"{serial['wall_ms_per_step']:.3f} ms a step wall, steady "
+        f"{serial['steady_ms_per_step']:.3f}; step_time_s {serial['step_time_s']:.6f} "
+        f"host_time_s {serial['host_time_s']:.6f}")
+    rgcn_shapes, hgt_shapes = {}, {}
+    sessions = []
+    for label, store in (("rgcn global shm", "shm"), ("rgcn global mmap", "mmap")):
+        sess, res = dp_fit(label, scale, graph, report, steps=steps, shapes_acc=rgcn_shapes,
+                           mode="global", store=store)
+        check(res["losses"] == serial["losses"],
+              f"{label}: losses differ from the frozen serial fit's")
+        sessions.append((label, sess))
+    sess, _ = build_session(scale, None, graph=graph, learnable=False,
+                            dp=dict(num_trainers=DP_RANKS, mode="local"))
+    b0 = local_first_batch(sess)
+    before, _ = sess.executor.loss_and_metrics(sess, sess.plan, sess.state, b0)
+    del sess
+    sess, res = dp_fit("rgcn local shm", scale, graph, report, steps=steps,
+                       shapes_acc=rgcn_shapes, mode="local", store="shm")
+    after, _ = sess.executor.loss_and_metrics(sess, sess.plan, sess.state, b0)
+    log(f"  [rgcn local shm] rank 0's step-0 sub-batch ({len(b0.seeds)} seeds) scores "
+        f"{before:.6f} before the fit, {after:.6f} after; ranks bit-identical (losses and "
+        f"state, run_dp_fit's own check)")
+    check(after < before, f"rgcn local: step 0's sub-batch scores {after} after, {before} before")
+    report["dp"]["rgcn local shm"].update(first_batch_before=before, first_batch_after=after)
+    sessions.append(("rgcn local shm", sess))
+    hsess, hres, _ = pipelined_fit("hgt frozen serial", scale, graph, report, model="hgt",
+                                   learnable=False, fits=(steps,))
+    del hsess
+    sess, res = dp_fit("hgt global shm", scale, graph, report, model="hgt", steps=steps,
+                       shapes_acc=hgt_shapes, mode="global", store="shm")
+    check(res["losses"] == hres["losses"], "hgt global: losses differ from the frozen serial fit's")
+    log(f"  [hgt global shm] beside the frozen HGT serial fit: "
+        f"{report['pipeline']['hgt frozen serial']['wall_ms_per_step']:.3f} ms a step wall, "
+        f"steady {report['pipeline']['hgt frozen serial']['steady_ms_per_step']:.3f}")
+    sessions.append(("hgt global shm", sess))
+    for label, sess in sessions:
+        ev = sess.evaluate(num_batches=2)
+        check(bool(np.isfinite(ev["loss"])), f"{label}: evaluate gave {ev['loss']}")
+        report["dp"][label]["eval_loss"] = ev["loss"]
+        log(f"  [{label}] evaluate loss {ev['loss']:.6f}")
+    check(not own_segments(), f"segments left: {own_segments()}")
+    check(not own_stores(), f"stores left: {own_stores()}")
+    log(f"  no segment or store of pid {os.getpid()} left "
         f"({time.perf_counter() - t_phase:.1f} s phase)")
     return rgcn_shapes, hgt_shapes
 
@@ -2338,6 +2555,9 @@ def main(argv=None) -> int:
         f"and {PIPE_WORKERS} sampler processes against the serial loop; the shm store served")
     paths["rgcn pipeline training"], paths["hgt pipeline training"] = run_pipeline(
         args.scale, report, g)
+    log(f"== 4f the data-parallel tier: {DP_RANKS} trainer processes on the one card, "
+        "R-GCN global (shm, mmap) and local, HGT global, against the serial loop")
+    paths["rgcn dp training"], paths["hgt dp training"] = run_dp(args.scale, report, g)
     log(f"== 9 LM workbench: llama3.2-3b at full width (bf16, seed {args.seed}), prefill "
         "4 x 2048 then 32 greedy decode steps")
     paths["lm prefill + decode"] = run_lm(report, args.seed)
@@ -2345,6 +2565,7 @@ def main(argv=None) -> int:
     order += ["rgcn raf training"] + [f"{m} unfused {p}" for p in ("training", "serving")
                                       for m in ("rgat", "hgt")]
     order += ["rgcn pipeline training", "hgt pipeline training"]
+    order += ["rgcn dp training", "hgt dp training"]
     order += ["lm prefill + decode"]
     paths = {p: paths[p] for p in order}
 

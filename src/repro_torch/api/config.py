@@ -1,10 +1,7 @@
 """HetaConfig — the typed, validated configuration tree of the public API.
 
 The port keeps the reference package's configuration field for field, so a
-config dict round-trips between the two packages unchanged; the section
-whose machinery belongs to a later slice of the port (scale-out) is
-accepted and validated here, and the stage that would use it raises a
-named error.
+config dict round-trips between the two packages unchanged.
 
 One config object describes a complete Heta run.  It composes eleven
 section dataclasses mirroring the pipeline stages:
@@ -29,7 +26,7 @@ section dataclasses mirroring the pipeline stages:
     budget/backoff, arena write stall timeout; DESIGN.md §12)
   * :class:`ScaleConfig`     — hierarchical scale-out (trainer process
     count, group hierarchy, store flavor, allreduce overlap; see
-    ``repro.data.dp_trainer`` and DESIGN.md §13)
+    ``repro_torch.data.dp_trainer`` and DESIGN.md §13)
 
 Three interchange formats round-trip losslessly:
 
@@ -443,7 +440,7 @@ class FaultConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ScaleConfig:
-    """Hierarchical scale-out (``repro.data.dp_trainer``, DESIGN.md §13).
+    """Hierarchical scale-out (``repro_torch.data.dp_trainer``, DESIGN.md §13).
 
     ``num_trainers`` spawns that many data-parallel trainer processes in
     ``Heta.fit`` (1 = today's in-process loop, no spawn).  Each trainer
@@ -452,7 +449,7 @@ class ScaleConfig:
     all-reduce folded into the ``sync_stack_grads`` discipline.
 
     ``hierarchy`` is the two-level layout ``(groups, trainers_per_group)``
-    of :func:`repro.core.meta_partition.hierarchical_partition` — schema-
+    of :func:`repro_torch.core.meta_partition.hierarchical_partition` — schema-
     level meta-partitioning across groups, greedy edge-cut within.  The
     default ``None`` resolves to ``(1, num_trainers)``; when given, the
     product must equal ``num_trainers``.

@@ -23,9 +23,11 @@ With ``pipeline.enabled``, ``fit`` and ``evaluate`` overlap host sampling
 and staging with the device step (``repro_torch.data``, DESIGN.md §9/§11):
 in one producer thread, or in ``pipeline.num_workers`` spawned sampler
 processes over a shared-memory graph store and batch arena, supervised as
-DESIGN.md §12 says (``fault_plan`` schedules faults for drills).  The
-data-parallel scale-out tier (``scale.enabled``) is a later slice of the
-port, and asking for it raises ``NotImplementedError``.
+DESIGN.md §12 says (``fault_plan`` schedules faults for drills).  With
+``scale.enabled`` (``scale.num_trainers > 1``), ``fit`` trains in that many
+processes over a shared graph store (``repro_torch.data.dp_trainer``,
+DESIGN.md §13): this session is rank 0, the others are spawned on its
+device.
 """
 
 from __future__ import annotations
@@ -160,18 +162,23 @@ class Heta:
 
         Pass ``graph`` to reuse a pre-built :class:`HetGraph` instead of
         synthesizing from ``DataConfig``."""
+        from repro_torch.graph.mmap_store import cleanup_stale_stores
         from repro_torch.graph.shm import cleanup_stale_segments
         from repro_torch.graph.synthetic import make_dataset
 
         t0 = time.perf_counter()
-        # shm janitor (DESIGN.md §12): a hard-crashed earlier run can leave
-        # orphaned graph/arena segments; sweep the port's whose owner pid is
-        # gone before allocating new ones (the reference also sweeps its
-        # on-disk mmap stores here, which the port does not have yet)
+        # shm janitor (DESIGN.md §12/§13): a hard-crashed earlier run can
+        # leave orphaned graph/arena segments and, since the scale-out tier,
+        # on-disk mmap stores; sweep the port's of both kinds whose owner pid
+        # is gone before allocating new ones
         try:
             cleanup_stale_segments()
         except OSError:
             pass  # best-effort: /dev/shm may be absent on this platform
+        try:
+            cleanup_stale_stores()
+        except OSError:
+            pass  # best-effort: never fail session start over a sweep
         cfg = self.config
         self.graph = graph if graph is not None else make_dataset(
             cfg.data.dataset, scale=cfg.data.scale, seed=cfg.run.seed)
@@ -370,13 +377,6 @@ class Heta:
 
     # -- stage 5: training / evaluation ---------------------------------------
 
-    def _refuse_scale_out(self, what: str) -> None:
-        if self.config.scale.enabled:
-            raise NotImplementedError(
-                f"{what} with scale.enabled: the data-parallel trainer "
-                "(data/dp_trainer.py on torch.distributed) is a later slice of "
-                "the port; use scale.num_trainers=1")
-
     def step(self, batch=None) -> float:
         """One optimization step (samples the next batch when none given).
 
@@ -446,8 +446,13 @@ class Heta:
         staging reads tables at most the queue or ring depth behind."""
         self._require("state", "compile", "fit")
         steps = self.config.run.steps if steps is None else steps
-        if steps:
-            self._refuse_scale_out("fit")
+        if steps and self.config.scale.enabled:
+            # multi-process data-parallel tier (DESIGN.md §13): rank 0 is
+            # this process; scale.num_trainers-1 trainer processes attach
+            # the shared store and the loop runs in repro_torch.data.dp_trainer
+            from repro_torch.data.dp_trainer import run_dp_fit
+
+            return run_dp_fit(self, steps)
         log_every = self.config.run.log_every
 
         def logged(loss: float) -> None:
@@ -541,7 +546,6 @@ class Heta:
         from repro_torch.graph.sampler import NeighborSampler
 
         self._require("state", "compile", "evaluate")
-        self._refuse_scale_out("evaluate")
         eval_seed = self.config.run.seed + 9999
         sampler = NeighborSampler(
             self.graph, self.spec, self.config.data.batch_size, seed=eval_seed,

@@ -20,7 +20,8 @@ through the deterministic one-hot :func:`~repro_torch.kernels.
 stacked_relation_agg.segment_sum`, so a run repeats bit for bit.
 Parameters are plain trees of tensors (the stack dicts); gradients come
 from ``torch.autograd.grad`` (:func:`grad_step`), pass through
-:func:`sync_stack_grads`, then Adam (:func:`train_step`).
+:func:`sync_stack_grads`, then Adam (:func:`apply_step`; both halves make
+:func:`train_step`).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ __all__ = [
     "loss_fn",
     "sync_stack_grads",
     "grad_step",
+    "apply_step",
     "train_step",
 ]
 
@@ -527,11 +529,22 @@ def train_step(
     kernels=None,
     learn_feats: bool = False,
 ):
-    """One SPMD RAF train step: ``(stacks, opt_state, loss, feat_grads)``.
-    Stack gradients pass through :func:`sync_stack_grads` before Adam, so
-    parameters shared across shard slots stay consistent copies."""
+    """One SPMD RAF train step: ``(stacks, opt_state, loss, feat_grads)``:
+    :func:`grad_step`, then :func:`apply_step`."""
     loss, grads, gf = grad_step(plan, stacks, arrays, local_combine, kernels, learn_feats)
+    stacks, opt_state = apply_step(plan, adam_cfg, stacks, opt_state, grads)
+    return stacks, opt_state, loss, gf
+
+
+def apply_step(plan: StackedPlan, adam_cfg: AdamConfig, stacks: Dict, opt_state: Dict,
+               grads: Dict):
+    """The update half of :func:`train_step` (the reference's
+    ``make_apply_step``): ``(stacks, opt_state)`` after
+    :func:`sync_stack_grads` on ``grads`` and Adam, so parameters shared
+    across shard slots stay consistent copies.  The data-parallel tier
+    (``repro_torch.data.dp_trainer``) runs it on the cross-trainer sum of
+    :func:`grad_step`'s raw gradients, so the cross-slot sync happens
+    once, on the sum, as in the single-process step."""
     grads = sync_stack_grads(plan, grads)
     with torch.no_grad():
-        stacks, opt_state = adam_update(adam_cfg, stacks, grads, opt_state)
-    return stacks, opt_state, loss, gf
+        return adam_update(adam_cfg, stacks, grads, opt_state)

@@ -42,12 +42,10 @@ unpickling a :class:`SampleStageTask` imports ``repro_torch``,
 and ``repro_torch.data``, none of which imports torch, so spawn cost is
 numpy import plus a shared-memory attach.
 
-A copy of the reference's ``repro/data/worker_pool.py`` with one
-difference: :meth:`SampleStageTask.setup` attaches the store with
-:func:`repro_torch.graph.shm.attach`, where the reference calls
-``repro.graph.mmap_store.attach_any`` (shm or on-disk mmap stores); the
-port's mmap store arrives with its data-parallel tier, and until then its
-workers attach shm stores only.
+A copy of the reference's ``repro/data/worker_pool.py``:
+:meth:`SampleStageTask.setup` attaches either store flavor (a
+``/dev/shm`` segment or an on-disk mmap store) through
+:func:`repro_torch.graph.mmap_store.attach_any`, as the reference does.
 """
 
 from __future__ import annotations
@@ -496,8 +494,9 @@ class SampleStageTask:
         self._attempt = attempt
 
     def setup(self) -> None:
+        from repro_torch.graph.mmap_store import attach_any
         from repro_torch.graph.sampler import NeighborSampler
-        from repro_torch.graph.shm import attach, attach_arena
+        from repro_torch.graph.shm import attach_arena
 
         if self.pin_cpus:
             # opt-in affinity pin (pipeline.pin_workers): worker w sticks to
@@ -511,8 +510,7 @@ class SampleStageTask:
             except (AttributeError, OSError):
                 pass
 
-        # the reference: mmap_store.attach_any(self.handle) (shm or mmap)
-        self._attached = attach(self.handle)
+        self._attached = attach_any(self.handle)  # shm or mmap store
         self._sampler = NeighborSampler(
             self._attached.graph, self.spec, self.batch_size,
             seed=self.sampler_seed,

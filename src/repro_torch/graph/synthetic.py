@@ -25,6 +25,7 @@ __all__ = [
     "donor_like",
     "igb_het_like",
     "mag240m_like",
+    "mag240m_stream",
     "DATASETS",
     "make_dataset",
 ]
@@ -248,6 +249,155 @@ def mag240m_like(scale: float = 0.0002, seed: int = 4, feat_dim: int = 768) -> H
         features={"paper": _features(rng, n["paper"], feat_dim, np.float16)},
         name="mag240m-like",
     )
+
+
+# --------------------------------------------------------------------------
+# streaming mag240m: billion-edge-schema CSRs built chunk-wise to an mmap
+# store, never materializing the edge payload in RAM (DESIGN.md §13)
+# --------------------------------------------------------------------------
+
+
+def _stream_chunks(seed: int, rel_id: int, num_src: int, num_dst: int,
+                   num_edges: int, chunk: int, perm: np.ndarray,
+                   a: float = 1.2):
+    """Deterministic COO chunks of one base relation.
+
+    Chunk ``c`` is a pure function of ``(seed, rel_id, c)`` so the two-pass
+    counting sort can regenerate the identical stream on each pass — the
+    out-of-core analog of :func:`_rand_relation` (same Zipf-skewed sources
+    through a fixed id permutation, uniform destinations)."""
+    for c, start in enumerate(range(0, num_edges, chunk)):
+        m = min(chunk, num_edges - start)
+        rng = np.random.default_rng([seed, rel_id, c])
+        ranks = np.minimum(rng.zipf(a, size=m) - 1, num_src - 1)
+        src = perm[ranks]
+        dst = rng.integers(0, num_dst, m)
+        yield src, dst
+
+
+def _stream_fill_csr(writer, rel_index: int, chunks, num_dst: int) -> None:
+    """Two-pass chunked counting sort straight into the store's memmap views.
+
+    Pass 1 accumulates per-destination degrees (O(num_dst) RAM) and cumsums
+    them into ``indptr``; pass 2 regenerates the same chunks and scatters
+    source ids to their final slots via per-destination write cursors.  The
+    O(num_edges) ``indices`` array only ever exists on disk — this replaces
+    the global ``argsort`` of :meth:`CSR.from_edges`, whose COO + order
+    arrays would need ~3x the edge payload in RAM."""
+    indptr = writer.array(f"rel/{rel_index}/indptr")
+    indices = writer.array(f"rel/{rel_index}/indices")
+    counts = np.zeros(num_dst, dtype=np.int64)
+    for _, d in chunks():
+        counts += np.bincount(d, minlength=num_dst)
+    indptr[0] = 0
+    np.cumsum(counts, out=indptr[1:])
+    cursor = indptr[:-1].copy()
+    for s, d in chunks():
+        order = np.argsort(d, kind="stable")
+        ds, ss = d[order], s[order]
+        uniq, first, cnt = np.unique(ds, return_index=True,
+                                     return_counts=True)
+        offs = np.arange(ds.size, dtype=np.int64) - np.repeat(first, cnt)
+        indices[cursor[ds] + offs] = ss
+        cursor[uniq] += cnt
+
+
+def mag240m_stream(scale: float = 0.005, seed: int = 4, feat_dim: int = 768,
+                   chunk_edges: int = 1 << 20, include_features: bool = True,
+                   root: Optional[str] = None):
+    """MAG240M-schema graph built chunk-wise into an mmap store.
+
+    Same schema as :func:`mag240m_like` (3 base relations + reverses of
+    writes/affiliated_with, paper-featured, 153 classes) but constructed
+    out-of-core: every CSR is filled by :func:`_stream_fill_csr` in
+    ``chunk_edges``-sized pieces, so at ``scale=1.0`` the ~1.7B-edge
+    topology (and the feature table) land directly in the store's
+    ``data.bin`` while peak RAM stays O(nodes + chunk).  Deterministic in
+    ``(seed, chunk_edges)`` — each chunk's RNG is keyed by its index, so
+    the two passes replay identically; a different chunking draws a
+    different (equally valid) graph.  Returns the owning
+    :class:`~repro_torch.graph.mmap_store.MmapHetGraph`; attach it (or hand its
+    picklable handle to trainer processes) via
+    :func:`~repro_torch.graph.mmap_store.attach_mmap`.
+    """
+    from repro_torch.graph.mmap_store import create_store_writer
+
+    n = {
+        "paper": max(int(121_000_000 * scale), 64),
+        "author": max(int(122_000_000 * scale), 64),
+        "institution": max(int(26_000 * scale), 16),
+    }
+    # base streams: (rel_id, src_type, dst_type, num_edges)
+    base = {
+        "writes": (0, "author", "paper", max(int(386_000_000 * scale), 256)),
+        "cites": (1, "paper", "paper", max(int(1_300_000_000 * scale), 256)),
+        "affiliated_with": (
+            2, "author", "institution", max(int(44_000_000 * scale), 256)),
+    }
+    rels = {
+        Relation("author", "writes", "paper"): ("writes", False),
+        Relation("paper", "cites", "paper"): ("cites", False),
+        Relation("author", "affiliated_with", "institution"): (
+            "affiliated_with", False),
+        Relation("paper", "rev_writes", "author"): ("writes", True),
+        Relation("institution", "rev_affiliated_with", "author"): (
+            "affiliated_with", True),
+    }
+    rel_order = sorted(rels)  # handle order matches mmap_share_graph's
+
+    spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    for i, rel in enumerate(rel_order):
+        ename, _ = rels[rel]
+        _, _, _, ne = base[ename]
+        spec[f"rel/{i}/indptr"] = ((n[rel.dst] + 1,), "<i8")
+        spec[f"rel/{i}/indices"] = ((ne,), "<i8")
+    spec["labels"] = ((n["paper"],), "<i8")
+    spec["train_nodes"] = ((n["paper"],), "<i8")
+    if include_features:
+        spec["feat/paper"] = ((n["paper"], feat_dim), "<f2")
+
+    writer = create_store_writer(
+        spec, num_nodes=n,
+        relations=tuple((r.src, r.etype, r.dst) for r in rel_order),
+        target_type="paper", num_classes=153, graph_name="mag240m-stream",
+        root=root,
+    )
+    try:
+        # hot-id permutations, one per base src type (matches _zipf_ids's
+        # fixed per-graph permutation; O(nodes) RAM, reused across passes)
+        perms = {
+            t: np.random.default_rng(12345).permutation(n[t])
+            for t in ("author", "paper")
+        }
+        for i, rel in enumerate(rel_order):
+            ename, reverse = rels[rel]
+            rel_id, src_t, dst_t, ne = base[ename]
+
+            def chunks(_rid=rel_id, _s=src_t, _d=dst_t, _ne=ne, _rev=reverse):
+                for s, d in _stream_chunks(seed, _rid, n[_s], n[_d], _ne,
+                                           chunk_edges, perms[_s]):
+                    yield (d, s) if _rev else (s, d)
+
+            _stream_fill_csr(writer, i, chunks,
+                             n[rel.dst])
+        labels = writer.array("labels")
+        train = writer.array("train_nodes")
+        rng_rows = max(1, chunk_edges // max(feat_dim, 1))
+        lab_rng = np.random.default_rng(0)  # matches HetGraph's auto labels
+        labels[:] = lab_rng.integers(0, 153, n["paper"]).astype(np.int64)
+        train[:] = np.arange(n["paper"], dtype=np.int64)
+        if include_features:
+            feat = writer.array("feat/paper")
+            for start in range(0, n["paper"], rng_rows):
+                stop = min(start + rng_rows, n["paper"])
+                rng = np.random.default_rng([seed, 8, start])
+                feat[start:stop] = (
+                    rng.standard_normal((stop - start, feat_dim)) * 0.1
+                ).astype(np.float16)
+        return writer.commit()
+    except BaseException:
+        writer.abort()
+        raise
 
 
 DATASETS = {

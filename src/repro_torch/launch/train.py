@@ -18,12 +18,15 @@ Usage:
 Prints per-step losses, then the result dict as JSON and the final loss.
 ``--pipeline`` overlaps host sampling and staging with the device step (a
 producer thread, or ``--num-workers`` sampler processes over shared
-memory).  ``--shm-cleanup`` first unlinks the shared-memory segments that
-crashed runs of the port left in ``/dev/shm`` (names ``heta-tshm-<pid>-*``
-whose creator is gone), then trains as usual; the reference's flag also
-sweeps its on-disk mmap stores, which the port does not have yet.  The
-reference's legacy aliases ``--naive`` and ``--hotness-only`` have no
-counterpart: use ``--placement naive`` and ``--cache-policy hotness``.
+memory); ``--num-trainers 2 --no-train-learnable`` runs the data-parallel
+fit in two trainer processes over a shared graph store (``--scale-store
+mmap`` for the on-disk one).  ``--shm-cleanup`` first unlinks the
+shared-memory segments and on-disk mmap stores that crashed runs of the
+port left behind (names ``heta-tshm-<pid>-*`` in ``/dev/shm`` and
+``heta-tmmap-<pid>-*`` in the store root, whose creator is gone), then
+trains as usual.  The reference's legacy aliases ``--naive`` and
+``--hotness-only`` have no counterpart: use ``--placement naive`` and
+``--cache-policy hotness``.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ def _parser() -> argparse.ArgumentParser:
                          "PyTorch path)")
     add_config_args(ap)
     ap.add_argument("--shm-cleanup", action="store_true",
-                    help="sweep orphaned /dev/shm segments left by crashed runs "
-                         "of the port, then train as usual")
+                    help="sweep orphaned /dev/shm segments and mmap stores left "
+                         "by crashed runs of the port, then train as usual")
     return ap
 
 
@@ -55,11 +58,15 @@ def main(argv=None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
     if args.shm_cleanup:
+        from repro_torch.graph.mmap_store import cleanup_stale_stores
         from repro_torch.graph.shm import cleanup_stale_segments
 
         removed = cleanup_stale_segments()
         print(f"shm-cleanup: removed {len(removed)} stale segment(s)"
               + "".join(f"\n  {n}" for n in removed))
+        reaped = cleanup_stale_stores()
+        print(f"shm-cleanup: removed {len(reaped)} stale mmap store(s)"
+              + "".join(f"\n  {n}" for n in reaped))
     cfg = config_from_args(args)
     if cfg.run.executor not in executors.available():
         ap.error(f"unknown --executor {cfg.run.executor!r}; "

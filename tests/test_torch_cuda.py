@@ -1184,3 +1184,78 @@ def test_cuda_stage_from_host_copies_out_of_the_slot(cuda_device):
             assert t.is_cuda and t.dtype == torch.from_numpy(v).dtype
             np.testing.assert_array_equal(t.cpu().numpy(), v)
         del host, views
+
+
+# --------------------------------------------------------------------------
+# the data-parallel tier on the card (two ranks time-share the one device)
+# --------------------------------------------------------------------------
+
+
+def _dp_config(steps, **scale):
+    from repro_torch.api import HetaConfig
+
+    cfg = HetaConfig().updated(data=dict(scale=0.002, fanouts=(3, 2), batch_size=16),
+                               partition=dict(num_partitions=2), cache=dict(cache_mb=1),
+                               model=dict(train_learnable=False),
+                               run=dict(steps=steps, log_every=0))
+    return cfg.updated(scale=scale) if scale else cfg
+
+
+def _dp_fit(cuda_device, cfg):
+    """A compiled session on the card, its DP fit from reset launch counts
+    (waits bounded at 120 s), and rank 0's launches in that fit."""
+    from repro_torch.api import Heta
+    from repro_torch.data.dp_trainer import run_dp_fit
+
+    sess = Heta(cfg, device=cuda_device)
+    sess.build_graph(), sess.partition(), sess.profile_and_cache(), sess.compile()
+    kops.reset_launch_counts()
+    res = run_dp_fit(sess, cfg.run.steps, timeout_s=120.0)
+    return sess, res, {k: v.launches for k, v in kops.KERNELS.items()}
+
+
+def _assert_no_dp_leaks():
+    import os
+
+    from repro_torch.graph.mmap_store import live_stores
+    from repro_torch.graph.shm import live_segments
+
+    assert not live_segments(f"heta-tshm-{os.getpid():x}-")
+    assert not live_stores(prefix=f"heta-tmmap-{os.getpid():x}-")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["shm", "mmap"])
+def test_cuda_dp_global_fit_equals_single_process(cuda_device, store):
+    """Two ranks on the card under the stripe discipline give the
+    single-process card fit's losses and final state bit for bit; both
+    ranks launch kernels 1 and 2 for the steps they own, rank 1 in its own
+    process and CUDA context."""
+    from repro_torch.api import Heta
+    from repro_torch.data.dp_trainer import state_sha
+
+    single = Heta(_dp_config(4), device=cuda_device)
+    want = single.run()["losses"]
+    sess, res, launched = _dp_fit(cuda_device, _dp_config(4, num_trainers=2, store=store))
+    assert res["losses"] == want and state_sha(sess.state) == state_sha(single.state)
+    rank1 = res["scale"]["trainer_reports"][1]["kernel_launches"]
+    for name in ("stacked_mean_linear", "stacked_mean_linear_dh"):
+        assert launched[name] > 0 and rank1[name]["launches"] == launched[name]
+    assert launched["gather_rows"] == 0  # frozen tables: no sparse update
+    assert np.isfinite(sess.evaluate(num_batches=1)["loss"])
+    _assert_no_dp_leaks()
+
+
+@pytest.mark.cuda
+def test_cuda_dp_local_fit_ranks_agree(cuda_device):
+    """``"local"`` mode on the card: run_dp_fit's cross-rank check (losses
+    and final state hash, bit for bit) holds, the losses are finite, and
+    both ranks launch kernels 1 and 2 every step."""
+    sess, res, launched = _dp_fit(cuda_device,
+                                  _dp_config(3, num_trainers=2, mode="local"))
+    assert len(res["losses"]) == 3 and np.isfinite(res["losses"]).all()
+    assert res["scale"]["trainer_reports"][1]["state_sha"] == res["scale"]["state_sha"]
+    rank1 = res["scale"]["trainer_reports"][1]["kernel_launches"]
+    for name in ("stacked_mean_linear", "stacked_mean_linear_dh"):
+        assert launched[name] > 0 and rank1[name]["launches"] == launched[name]
+    _assert_no_dp_leaks()

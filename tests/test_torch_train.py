@@ -402,9 +402,12 @@ def test_train_cli_runs_on_the_cpu_and_refuses_without_a_gpu(monkeypatch, capsys
 
 def test_later_slices_raise_named_errors():
     """Every executor the reference registers compiles (an unknown name
-    raises the named KeyError listing them); the data-parallel tier, a
-    later slice, raises a named NotImplementedError, while the host
-    pipeline (ported) trains and evaluates."""
+    raises the named KeyError listing them); the data-parallel tier refuses
+    trained learnable tables with the reference's named HetaStageError
+    before it spawns anything, and evaluates with ``scale.enabled`` as the
+    reference does; the host pipeline trains and evaluates."""
+    from repro_torch.api.session import HetaStageError
+
     sess = _port_session()
     sess.build_graph(), sess.partition(), sess.profile_and_cache()
     with pytest.raises(KeyError, match="available: \\('raf', 'raf_spmd', 'serve', 'vanilla'\\)"):
@@ -413,10 +416,10 @@ def test_later_slices_raise_named_errors():
     assert sess.executor.name == "vanilla" and "bundle" in sess.state
     sess.compile()
     sess.config = sess.config.updated(scale=dict(num_trainers=2))
-    with pytest.raises(NotImplementedError, match="scale.enabled"):
+    with pytest.raises(HetaStageError, match="frozen"):
         sess.fit()
-    with pytest.raises(NotImplementedError, match="scale.enabled"):
-        sess.evaluate()
+    ev = sess.evaluate(num_batches=1)
+    assert ev["num_batches"] == 1 and np.isfinite(ev["loss"])
     sess.config = _port_session().config
     res = sess.fit(2)
     assert len(res["losses"]) == 2 and res["step_time_s"] > 0

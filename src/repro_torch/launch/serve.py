@@ -10,12 +10,24 @@ threads — printing the inference time split, p50/p99 latency, QPS and
 per-type cache hit rates.  All ``HetaConfig`` flags apply (``--scale``, ``--steps``,
 ``--serve-max-batch``, ``--serve-cache-mb``, ...).
 
-**LM workbench** (``--arch NAME``, the dense decoders): batched prefill
+**LM workbench** (``--arch NAME``, every decoder the configs register:
+dense, MoE, Mamba-2, the Jamba hybrid, the vision model): batched prefill
 (the flash-attention kernel in every attention layer) and token-by-token
-greedy decode against the KV cache, as ``repro/launch/serve.py`` does;
-``--window`` feeds the prompt through decode into a ring-buffer cache
+greedy decode against the KV and SSM caches, as ``repro/launch/serve.py``
+does; ``--window`` feeds the prompt through decode into a ring-buffer cache
 instead.  ``--reduced`` (the default) runs the shrunken config,
-``--no-reduced`` the full one (on the GPU).
+``--no-reduced`` the full one (on the GPU).  An encoder-only ``--arch``
+(hubert-xlarge) exits with the reference's message.
+
+Where the LM half departs from the reference's CLI: the reference passes
+only ``{"tokens"}`` to prefill, so its vision model ends in ``KeyError:
+'patch_embeds'``, and its decode loop would start at ``S`` where the cache
+already holds ``frontend_tokens + S`` positions.  Here the vision model's
+prefill also gets ``patch_embeds`` ``[B, frontend_tokens, frontend_dim]``,
+drawn from ``--seed`` with numpy after the prompt (the stub frontend's
+precomputed embeddings, as the reference's tests draw them), and decode
+starts at ``frontend_tokens + S``.  ``--window`` feeds the text prompt
+alone through decode, as the reference does.
 
 Usage:
   python -m repro_torch.launch.serve --scale 0.1
@@ -23,6 +35,7 @@ Usage:
   python -m repro_torch.launch.serve --scale 0.002 --device cpu
   python -m repro_torch.launch.serve --arch llama3.2-3b --device cpu \
       --batch 2 --prompt-len 16 --new-tokens 8 [--window 8]
+  python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --device cpu
 """
 
 from __future__ import annotations
@@ -35,7 +48,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["run_clients", "serve_lm", "main"]
+__all__ = ["run_clients", "pad_kv_cache", "serve_lm", "main"]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -58,7 +71,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="cap the synthetic graph's in-degree (0 = uncapped)")
     lm = ap.add_argument_group("LM workbench (--arch)")
     lm.add_argument("--arch", default=None,
-                    help="run the LM decode workbench for this dense decoder "
+                    help="run the LM decode workbench for this configuration "
                          "instead of the HGNN tier (e.g. llama3.2-3b)")
     lm.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True,
                     help="LM workbench only: run the reduced config "
@@ -115,12 +128,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_lm(args) -> dict:
-    """The LM workbench: prefill a batch of random prompts (drawn from
-    ``--seed``), then decode ``--new-tokens`` greedily.  Returns the
-    generated tokens ``[B, N]`` and the two times."""
+def pad_kv_cache(cache: dict, n: int) -> dict:
+    """A prefill cache with ``n`` more positions for decode: only the KV
+    entries (``[P, A, B, S, KV, hd]``) grow along S; the Mamba states
+    (``conv``, ``ssm``) have no sequence axis and stay as they are."""
     import torch.nn.functional as F
 
+    return {k: F.pad(c, (0, 0, 0, 0, 0, n)) if k in ("k", "v") else c
+            for k, c in cache.items()}
+
+
+def serve_lm(args) -> dict:
+    """The LM workbench: prefill a batch of random prompts (drawn from
+    ``--seed``; the vision model's patches after them), then decode
+    ``--new-tokens`` greedily.  Returns the generated tokens ``[B, N]``,
+    the two times and the first decoded position."""
     from repro_torch.configs import get_arch
     from repro_torch.device import resolve_device
     from repro_torch.models import (init_decode_cache, init_params, make_prefill_step,
@@ -140,6 +162,7 @@ def serve_lm(args) -> dict:
 
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=device)
     t0 = time.perf_counter()
+    start = S
     if window:
         # window mode: ring-buffer cache; feed the prompt token-by-token
         cache = init_decode_cache(cfg, B, window, device=device)
@@ -147,8 +170,13 @@ def serve_lm(args) -> dict:
         for pos in range(S):
             logits, cache = serve(params, cache, prompts[:, pos:pos + 1], pos)
     else:
-        logits, cache = make_prefill_step(cfg)(params, {"tokens": prompts})
-        cache = {k: F.pad(c, (0, 0, 0, 0, 0, N)) for k, c in cache.items()}
+        batch = {"tokens": prompts}
+        if cfg.frontend == "vision":
+            batch["patch_embeds"] = rng.standard_normal(
+                (B, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+            start += cfg.frontend_tokens
+        logits, cache = make_prefill_step(cfg)(params, batch)
+        cache = pad_kv_cache(cache, N)
         serve = make_serve_step(cfg)
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -157,7 +185,7 @@ def serve_lm(args) -> dict:
     token = logits[:, -1:].argmax(dim=-1)
     out = []
     t0 = time.perf_counter()
-    for pos in range(S, S + N):
+    for pos in range(start, start + N):
         logits, cache = serve(params, cache, token, pos)
         token = logits.argmax(dim=-1)
         out.append(token)
@@ -166,7 +194,7 @@ def serve_lm(args) -> dict:
     print(f"decode {N} tokens: {dt * 1e3:.0f} ms ({dt / max(N, 1) * 1e3:.1f} ms/token, "
           f"window={window})")
     tokens = torch.cat(out, dim=1).cpu().numpy() if out else np.zeros((B, 0), np.int64)
-    return {"tokens": tokens, "prefill_s": prefill_s, "decode_s": dt}
+    return {"tokens": tokens, "prefill_s": prefill_s, "decode_s": dt, "start": start}
 
 
 def main(argv=None):

@@ -1,6 +1,8 @@
-"""The LM workbench's dense decoders (``repro/models`` in the reference):
-prefill and token-by-token decode, with the flash-attention kernel in
-every prefill attention layer."""
+"""The LM workbench's serving path (``repro/models`` in the reference): every
+registered configuration (dense and MoE decoders, Mamba-2, the Jamba
+hybrid, the vision and audio frontends) through prefill and token-by-token
+decode, with the flash-attention kernel in every prefill attention layer.
+Training waits for a later slice (ROADMAP.md §A.3)."""
 
 from repro_torch.models.transformer import (
     forward,

@@ -1,6 +1,6 @@
 """GQA attention: prefill (full-sequence) and cached decode.
 
-The port's copy of ``repro/models/attention.py`` for the dense decoders.
+The port's copy of ``repro/models/attention.py``.
 Two execution paths for the full sequence:
 
   * ``use_kernel=True`` — :func:`repro_torch.kernels.flash_attention`: the
@@ -43,10 +43,10 @@ def attn_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dev = gen.device
     p = {
-        "wq": he_init(gen, stack + (D, H * hd), dtype, fan_in=D),
-        "wk": he_init(gen, stack + (D, KV * hd), dtype, fan_in=D),
-        "wv": he_init(gen, stack + (D, KV * hd), dtype, fan_in=D),
-        "wo": he_init(gen, stack + (H * hd, D), dtype, fan_in=H * hd),
+        "wq": he_init(gen, (D, H * hd), dtype, fan_in=D, stack=stack),
+        "wk": he_init(gen, (D, KV * hd), dtype, fan_in=D, stack=stack),
+        "wv": he_init(gen, (D, KV * hd), dtype, fan_in=D, stack=stack),
+        "wo": he_init(gen, (H * hd, D), dtype, fan_in=H * hd, stack=stack),
         "norm": torch.ones(stack + (D,), dtype=dtype, device=dev),
     }
     if cfg.qkv_bias:

@@ -4,7 +4,11 @@ The port's copy of ``repro/models/layers.py``.  The bf16 rounding sites are
 the reference's: ``rms_norm`` normalizes in fp32 and rounds to x's type
 before ``* scale``; ``apply_rope`` rounds cos and sin to x's type before the
 rotation.  The initializers draw from an explicit ``torch.Generator``
-(seeded by the caller), in fp32, and cast to the parameter type.
+(seeded by the caller), in fp32, and cast to the parameter type, one entry
+of the leaf's ``stack`` (its period and slot axes) at a time into a
+preallocated tensor of that type: the fp32 transient is one entry's size,
+never the whole leaf's (qwen3-moe-30b-a3b's stacked ``w1`` is 19 GB in
+bf16 and would be 39 GB in fp32).
 """
 
 from __future__ import annotations
@@ -52,17 +56,26 @@ def apply_rope(
     return torch.cat([rotated, xp], dim=-1)
 
 
+def _draw(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype, std: float,
+          stack: Tuple[int, ...]) -> torch.Tensor:
+    """N(0, std^2) of shape ``stack + shape`` in ``dtype`` on ``gen``'s
+    device, drawn in fp32 one stack entry at a time (a leaf with no stack is
+    one entry)."""
+    out = torch.empty(stack + shape, dtype=dtype, device=gen.device)
+    for entry in out.view((-1,) + shape):
+        draw = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        entry.copy_(draw * std)
+    return out
+
+
 def he_init(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype,
-            fan_in: Optional[int] = None) -> torch.Tensor:
-    """N(0, 1/fan) on ``gen``'s device.  The fan keeps the reference's
-    operator precedence: ``(fan_in or shape[-2]) if len(shape) >= 2 else
-    shape[-1]``."""
+            fan_in: Optional[int] = None, stack: Tuple[int, ...] = ()) -> torch.Tensor:
+    """N(0, 1/fan) of shape ``stack + shape``.  The fan is ``shape``'s and
+    keeps the reference's operator precedence: ``(fan_in or shape[-2]) if
+    len(shape) >= 2 else shape[-1]``."""
     fan = fan_in or shape[-2] if len(shape) >= 2 else shape[-1]
-    std = 1.0 / float(fan) ** 0.5
-    draw = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (draw * std).to(dtype)
+    return _draw(gen, shape, dtype, 1.0 / float(fan) ** 0.5, stack)
 
 
 def embed_init(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
-    draw = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (draw * 0.02).to(dtype)
+    return _draw(gen, shape, dtype, 0.02, ())

@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                 # ogbn-mag at scale 0.1, the LM configs
     python3 chip_smoke.py --scale 1.0 --out results/smoke.json
 
-Phases, run in the order 1-6, 9, 9b, 7, 8 (any failure ends the run with a
-non-zero exit and no result line):
+Phases, run in the order 1-6, 9, 9b, 9c, 7, 8 (any failure ends the run
+with a non-zero exit and no result line):
 
   1. environment — torch/CUDA versions, the card's name and power limit;
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
@@ -163,7 +163,13 @@ non-zero exit and no result line):
      attention layer and decode none; block by block (every block call of
      the CPU's run again on the card from the CPU's inputs) within 1e-4, and
      the whole model within 1e-4 where no Mamba-2 state carries rounding
-     (mamba2's and jamba's whole-model gaps printed: LM_REFERENCE);
+     (mamba2's and jamba's whole-model gaps printed: LM_REFERENCE); then
+     each of them trained 3 donated steps on 4 x 64 from the same state on
+     the card and on the CPU in lockstep (the card's state loaded from the
+     CPU's before each step; MoE routing through a RouteBook): losses within
+     1e-4, parameters within 1e-4 and moments within 1e-5 but for entries
+     whose gradient lies within 8 x eps of zero (train_lockstep), no kernel
+     launched (jamba's gaps printed, not held);
   9. LM workbench — llama3.2-3b at full width (28 layers, d_model 3072, 24
      heads over 8 kv heads of 128, bf16) with weights drawn on the card from
      ``--seed``: from reset launch counts, make_prefill_step on a 4 x 2048
@@ -210,6 +216,27 @@ non-zero exit and no result line):
      full-width period is 90 GB; fp32, 2 periods, d_model 256): prefill of 4
      x 256, 2 launches, 32 decode steps; at capacity_factor 64 prefill(128)
      then 128 decode steps within 1e-3 of forward(256).
+  9c. LM training — (a) each of LM_TRAIN_RUNS, the train state drawn on the
+     card from ``--seed``, batches from TokenPipeline copied from pinned
+     memory (hubert: frames, llava: patches, drawn with numpy): from reset
+     launch counts, 8 donated steps of make_train_step (remat, the einsum
+     path, as the reference trains; its default AdamConfig but for lr,
+     3e-5: LM_TRAIN_ADAM): llama3.2-3b at full size on 1 x 4096,
+     granite-moe-1b-a400m, mamba2-1.3b and hubert-xlarge at full size on 2 x
+     4096, qwen3-moe-30b-a3b (2 x 4096) and llava-next-34b (1 x 4096: 576
+     patches + 3520 tokens, text scored) at full width on 2 layers (cut:
+     366 and 413 GB of state at full depth), jamba-1.5-large-398b reduced
+     on 4 x 256.  Every loss finite, step 0's batch re-scored lower after
+     the run, no kernel launched; llama's make_train_step(use_kernel=True)
+     raises on its first step.  Each prints the median step ms over steps
+     2..7, tokens/s, model FLOP/s (6 x active parameters x tokens / step)
+     and its share of the card's peak, the peak device memory and its
+     seconds; llama's and granite's take a 9th step under the profiler.
+     (b) llama3.2-3b at full width, 2 layers, fp32, 1 x 256: the card's
+     step-0 loss within 1e-5 of the CPU's, each gradient leaf within
+     relative Frobenius error 1e-4; 3 donated steps in lockstep with the
+     CPU as in phase 8; the card's first update through adam_update bit for
+     bit the in-place one; remat on and off within 1e-6.
 
 Phase 3 also holds flash_attention against attention_ref at the reference's
 ATTN_CASES, rows with no visible key, ragged non-causal, sq = 1 with
@@ -1525,7 +1552,7 @@ class RouteBook:
         if self.start is None:
             self.ref.append(idx.clone())
             return idx, w, probs
-        ref = self.ref[self.layer]
+        ref = self.ref[self.layer].to(idx.device)
         self.layer += 1
         K = idx.shape[1]
         seq = idx.shape[0] // self.rows
@@ -1819,6 +1846,384 @@ def run_lm_family(name: str, report: dict, seed: int):
     report.setdefault("lm_families", {})[name] = res
     log(f"  ({time.perf_counter() - t_phase:.1f} s phase)")
     return shapes
+
+
+# --------------------------------------------------------------------------
+# phase 9c: LM training
+# --------------------------------------------------------------------------
+
+
+# each run: (configuration, batch, sequence, cut).  The cut is None (full
+# size), a number of layers (full width: the state of qwen3-moe-30b-a3b at
+# full depth is 366 GB, of llava-next-34b 413 GB) or "reduced" (one
+# full-width period of jamba-1.5-large-398b is 90 GB of weights).  Batches
+# are cut from train_4k's 256 to what the 80 GB card holds
+LM_TRAIN_RUNS = (("llama3.2-3b", 1, 4096, None), ("granite-moe-1b-a400m", 2, 4096, None),
+                 ("mamba2-1.3b", 2, 4096, None), ("hubert-xlarge", 2, 4096, None),
+                 ("qwen3-moe-30b-a3b", 2, 4096, 2), ("llava-next-34b", 1, 4096, 2),
+                 ("jamba-1.5-large-398b", 4, 256, "reduced"))
+TRAIN_STEPS = 8
+# the optimizer of every run: make_train_step's default AdamConfig but for
+# lr, 3e-5 in place of 3e-4.  Adam's first steps are each close to a sign
+# step of lr on every weight, and at full width with no warmup 3e-4 (and
+# 1e-4) carried llava-next-34b's 2 layers (d_model 7168) above where they
+# started after 8 steps (step 0's batch re-scored 12.71 and 13.16 against
+# 11.72; PERF.md §6); every run learns at 3e-5
+LM_TRAIN_ADAM = dict(lr=3e-5, weight_decay=0.01, grad_clip=1.0)
+# the runs whose 9th step is profiled (a trace of mamba2's or hubert's
+# step takes 14-30 s to read back)
+PROFILED_TRAIN_RUNS = ("llama3.2-3b", "granite-moe-1b-a400m")
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense, no tensor cores in fp32
+
+
+def train_config(name: str, cut):
+    """``(cfg, label)`` of one phase-9c run (LM_TRAIN_RUNS)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch(name)
+    if cut == "reduced":
+        return full.reduced(), f"{name} reduced"
+    if cut:
+        return (dataclasses.replace(full, name=f"{name}-{cut}l", num_layers=cut),
+                f"{name}, {cut} of {full.num_layers} layers")
+    return full, name
+
+
+def train_batches(cfg, rng, batch: int, seq: int, device, seed: int):
+    """A TokenPipeline over the synthetic corpus, its batches copied to
+    ``device`` from pinned memory; the audio model's frames and the vision
+    model's patches drawn with ``rng`` as each batch is placed."""
+    import numpy as np
+
+    from repro_torch.data import SyntheticCorpus, TokenPipeline
+    from repro_torch.launch.train_lm import pinned_place
+
+    P = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    place = pinned_place(device)
+
+    def frontend(b):
+        if cfg.frontend == "audio":
+            b["frames"] = rng.standard_normal((batch, seq, cfg.frontend_dim)).astype(np.float32)
+            del b["tokens"]
+        elif cfg.frontend == "vision":
+            b["patch_embeds"] = rng.standard_normal(
+                (batch, P, cfg.frontend_dim)).astype(np.float32)
+        return place(b)
+
+    corpus = SyntheticCorpus(vocab=cfg.vocab, seq_len=seq - P, num_shards=8, seed=seed)
+    return TokenPipeline(corpus, batch, prefetch=2, place_fn=frontend)
+
+
+def run_lm_train(name: str, batch: int, seq: int, cut, report: dict, seed: int,
+                 steps: int = TRAIN_STEPS, adam_cfg=None) -> dict:
+    """Phase 9c (a), one run: the train state drawn on the card from
+    ``seed``, then from reset launch counts ``steps`` donated steps of
+    ``make_train_step`` (remat, the einsum path; ``adam_cfg``, by default
+    LM_TRAIN_ADAM) on TokenPipeline batches.
+    Checks: every loss finite, step 0's batch re-scored lower after the
+    run, no kernel launched; llama3.2-3b: the kernel path raises on its
+    first step.  Prints the median step ms over steps 2..7, tokens/s, model
+    FLOP/s (6 x active parameters x tokens) and its share of the card's
+    peak for the type, the peak device memory and the run's seconds; the
+    PROFILED_TRAIN_RUNS then take one more step under the profiler (the
+    card's busy time of its wall, the kernels that took the most)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import init_train_state, loss_fn, make_train_step
+    from repro_torch.optim import AdamConfig
+
+    t_run = time.perf_counter()
+    cfg, label = train_config(name, cut)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, seed, DEVICE)
+    torch.cuda.synchronize()
+    n = lm_param_count(state["params"])
+    width = 2 if cfg.dtype == "bfloat16" else 4
+    state_gb = n * (2 * width + 8) / 1e9  # parameters and gradients, then m and v in fp32
+    log(f"  [{label}] {n:,} parameters in {cfg.dtype}, train state (parameters, gradients, "
+        f"fp32 m and v) {state_gb:.1f} GB, drawn on the card from seed {seed} in "
+        f"{time.perf_counter() - t0:.2f} s; batch {batch} x {seq}")
+    pipe = train_batches(cfg, np.random.default_rng(seed), batch, seq, torch.device(DEVICE), seed)
+    step = make_train_step(cfg, adam_cfg or AdamConfig(**LM_TRAIN_ADAM))
+    losses, times = [], []
+    try:
+        reset_launch_counts()
+        for i in range(steps):
+            b = next(pipe)
+            if i == 0:
+                first = b
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, b)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        launches, _ = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profile = None
+        if name in PROFILED_TRAIN_RUNS:  # one more step under the profiler
+            b = next(pipe)
+            profile = device_profile(label, "one train step", lambda: step(state, b), rows=6)
+    finally:
+        pipe.close()
+    with torch.no_grad():
+        rescored = float(loss_fn(cfg, state["params"], first, remat=False))
+    if name == "llama3.2-3b":
+        try:
+            make_train_step(cfg, use_kernel=True)(state, first)
+        except RuntimeError as exc:
+            refused = str(exc).splitlines()[0]
+        else:
+            raise SmokeFailure(f"{label}: make_train_step(use_kernel=True) trained on the card")
+        log(f"  [{label}] make_train_step(use_kernel=True) refused on its first step: {refused}")
+    del state, first, b
+    torch.cuda.empty_cache()
+    ms = float(np.median(times[2:])) * 1e3
+    tokens = batch * seq
+    flops = 6 * cfg.active_param_count() * tokens / (ms / 1e3)
+    peak = PEAK_FLOPS[cfg.dtype]
+    res = dict(batch=batch, seq=seq, params=n, dtype=cfg.dtype, layers=cfg.num_layers,
+               state_gb=state_gb, losses=losses, rescored=rescored, step_ms=ms,
+               step_ms_all=[t * 1e3 for t in times], tokens_per_s=tokens / (ms / 1e3),
+               model_flops=flops, peak_share=flops / peak, peak_gb=peak_gb,
+               seconds=time.perf_counter() - t_run, launches=sum(launches.values()),
+               profile=profile)
+    log(f"  [{label}] {steps} steps: losses {[round(x, 4) for x in losses]}; step 0's batch "
+        f"after the run {rescored:.4f}; median step {ms:.2f} ms over steps 2..{steps - 1} "
+        f"(all: {[round(t * 1e3, 1) for t in times]}), {res['tokens_per_s']:,.0f} tokens/s, "
+        f"model {flops / 1e12:.1f} TFLOP/s ({res['peak_share'] * 100:.1f} % of "
+        f"{peak / 1e12:.0f} {cfg.dtype}); peak device memory {peak_gb:.2f} GB; kernels "
+        f"launched {res['launches']}; {res['seconds']:.1f} s")
+    report.setdefault("lm_training", {})[label] = res
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite training loss {losses}")
+    check(rescored < losses[0], f"{label}: step 0's batch scores {rescored:.5f} after the run, "
+          f"not below its {losses[0]:.5f}")
+    check(not any(launches.values()), f"{label}: the training path launched kernels {launches}")
+    return res
+
+
+def lm_train_batch(cfg, rng, batch: int, seq: int) -> dict:
+    """numpy training inputs of ``batch`` x ``seq`` positions (the vision
+    model's ``seq`` holds its patches; the audio model takes frames)."""
+    import numpy as np
+
+    if cfg.frontend == "audio":
+        return {"frames": rng.standard_normal((batch, seq, cfg.frontend_dim)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab, (batch, seq))}
+    n = seq - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, n)),
+           "labels": rng.integers(0, cfg.vocab, (batch, n))}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = rng.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def state_to(state: dict, device) -> dict:
+    from repro_torch.optim.adam import tree_map
+
+    return tree_map(lambda t: t.to(device, copy=True) if t.dim() else t.clone(), state)
+
+
+NEAR_ZERO = 8e-8  # 8 x Adam's eps: the exemption of tests/test_torch_train.py
+
+
+def train_lockstep(label: str, cfg, cpu: dict, gpu: dict, batches, hold: bool = True,
+                   lr: float = 3e-4, bitwise: bool = False) -> dict:
+    """Donated train steps on the card and on the CPU in lockstep, the two
+    states equal at the start: both take each step on the same batch (MoE
+    routing through a RouteBook: the card follows the CPU's picks on a near
+    tie), their gradients are caught on the way into the in-place update,
+    and the CPU's new state, copied to the card, is compared with the
+    card's there and becomes the card's state for the next step.  Held with
+    ``hold``: each step's loss within 1e-4, the parameters within 1e-4 and
+    the moments within 1e-5, except entries whose two gradients differ
+    while either lies within NEAR_ZERO of zero (Adam turns such a
+    gradient's rounding into an update difference of up to 2 lr, held to
+    that).  Lockstep, because such a difference moves every later gradient.
+    With ``bitwise``, the card's first update is also run through
+    adam_update, which must give every bit of the in-place one.  Returns
+    the gaps, the largest relative Frobenius gap of a step-0 gradient leaf
+    and the seconds spent in the CPU's steps, the card's and comparing."""
+    import torch
+
+    import repro_torch.models.transformer as tt
+    from repro_torch.models import make_train_step
+    from repro_torch.optim.adam import adam_update, tree_leaves
+
+    step = make_train_step(cfg)
+    orig = tt.adam_update_
+    caught = {}
+
+    def catch(side):
+        def update(adam_cfg, params, grads, opt):
+            caught[side] = grads
+            if side == "gpu" and bitwise and "bitwise" not in caught:
+                want = adam_update(adam_cfg, params, grads, opt)
+                out = orig(adam_cfg, params, grads, opt)
+                caught["bitwise"] = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(list(out)), tree_leaves(list(want))))
+                return out
+            return orig(adam_cfg, params, grads, opt)
+        return update
+
+    res = dict(losses=[], gaps=[], params=[], moments=[], exempt=[], routing=[],
+               seconds=dict(cpu=0.0, card=0.0, compare=0.0))
+    try:
+        for k, batch in enumerate(batches):
+            book = RouteBook(int(next(iter(batch.values())).shape[0]))
+            with routed(book):
+                t0 = time.perf_counter()
+                tt.adam_update_ = catch("cpu")
+                _, lc = step(cpu, batch)
+                t1 = time.perf_counter()
+                book.follow(0)
+                tt.adam_update_ = catch("gpu")
+                _, lg = step(gpu, batch)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            res["seconds"]["cpu"] += t1 - t0
+            res["seconds"]["card"] += t2 - t1
+            res["losses"].append((float(lc), float(lg)))
+            res["gaps"].append(abs(float(lc) - float(lg)))
+            res["routing"].append(book.note())
+            g_cpu = [g.to(DEVICE) for g in tree_leaves(caught.pop("cpu"))]
+            g_gpu = tree_leaves(caught.pop("gpu"))
+            if k == 0:
+                res["grad_rel_frobenius"] = max(
+                    float((a - b).norm() / b.norm().clamp(min=1e-30))
+                    for a, b in zip(g_gpu, g_cpu))
+            want = state_to(cpu, DEVICE)
+            worst = {"params": 0.0, "moments": 0.0}
+            n_exempt = 0
+            trees = [("params", gpu["params"], want["params"], 1e-4)]
+            trees += [("moments", gpu["opt"][m], want["opt"][m], 1e-5) for m in ("m", "v")]
+            for what, got, ref, atol in trees:
+                for a, b, gc, gg in zip(tree_leaves(got), tree_leaves(ref), g_cpu, g_gpu):
+                    diff = (a - b).abs()
+                    exempt = (torch.minimum(gc.abs(), gg.abs()) <= NEAR_ZERO) & (gc != gg)
+                    held = torch.where(exempt, 0.0, diff)
+                    worst[what] = max(worst[what], float(held.max()))
+                    if what == "params":
+                        n_exempt += int(exempt.sum())
+                    if hold:
+                        check(float(diff.max()) <= 2 * lr, f"{label}: step {k} {what} differ by "
+                              f"{float(diff.max()):.3g} > 2 lr on exempt entries")
+                if hold:
+                    check(worst[what] <= atol, f"{label}: step {k} {what} differ by "
+                          f"{worst[what]:.3g} > {atol}")
+            res["params"].append(worst["params"])
+            res["moments"].append(worst["moments"])
+            res["exempt"].append(n_exempt)
+            gpu.update(want)  # the next step starts from the CPU's state
+            del g_cpu, g_gpu, want
+            res["seconds"]["compare"] += time.perf_counter() - t2
+            if hold:
+                check(res["gaps"][-1] <= 1e-4, f"{label}: step {k} losses {float(lc):.7f} (CPU) "
+                      f"and {float(lg):.7f} (card) differ by more than 1e-4")
+    finally:
+        tt.adam_update_ = orig
+    if bitwise:
+        check(caught.get("bitwise", False), f"{label}: the in-place update differs from "
+              "adam_update's bits on the card")
+    res["bitwise"] = caught.get("bitwise")
+    return res
+
+
+def run_lm_train_fp32(report: dict, seed: int) -> dict:
+    """Phase 9c (b): llama3.2-3b at full width on 2 layers, fp32, 1 x 256
+    tokens: the card's step-0 loss within 1e-5 of the CPU's and every
+    gradient leaf within relative Frobenius error 1e-4; three donated steps
+    in lockstep with the CPU (train_lockstep); the card's first update
+    through adam_update bit for bit the in-place one; loss_fn with remat on
+    and off within 1e-6 on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.transformer as tt
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_train_state
+    from repro_torch.optim.adam import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("llama3.2-3b"), name="llama3.2-3b-2l-fp32",
+                              num_layers=2, dtype="float32")
+    gpu = init_train_state(cfg, seed, DEVICE)
+    cpu = state_to(gpu, "cpu")
+    rng = np.random.default_rng(seed)
+    batches = [lm_train_batch(cfg, rng, 1, 256) for _ in range(3)]
+    res = train_lockstep("llama3.2-3b, 2 layers, fp32", cfg, cpu, gpu, batches, bitwise=True)
+    rel = res["grad_rel_frobenius"]
+    res["step0_loss_gap"] = res["gaps"][0]
+    check(res["step0_loss_gap"] <= 1e-5, f"fp32 2 layers: step-0 losses differ by "
+          f"{res['step0_loss_gap']:.3g} > 1e-5")
+    check(rel <= 1e-4, f"fp32 2 layers: a step-0 gradient leaf is {rel:.3g} from the CPU's "
+          "(relative Frobenius) > 1e-4")
+    log(f"  [llama3.2-3b, 2 layers, fp32, 1 x 256] step 0: loss card {res['losses'][0][1]:.7f} "
+        f"vs CPU {res['losses'][0][0]:.7f} (gap {res['step0_loss_gap']:.3g}, limit 1e-5); "
+        f"largest relative Frobenius gap of a gradient leaf {rel:.3g} (limit 1e-4)")
+    log(f"  [llama3.2-3b, 2 layers, fp32] 3 donated steps in lockstep with the CPU: loss gaps "
+        f"{[f'{g:.3g}' for g in res['gaps']]} (limit 1e-4); parameters "
+        f"{[f'{g:.3g}' for g in res['params']]} (limit 1e-4; {res['exempt']} entries exempt: "
+        f"a gradient within {NEAR_ZERO:g} of zero); moments "
+        f"{[f'{g:.3g}' for g in res['moments']]} (limit 1e-5); the card's in-place update "
+        f"bit for bit adam_update's: {res['bitwise']}; seconds in the CPU's steps, the "
+        f"card's and comparing: {res['seconds']}")
+    del cpu
+    # remat on and off, on the card, from the trained state
+
+    on, g_on = tt._value_and_grad(cfg, gpu["params"], batches[0], remat=True)
+    off, g_off = tt._value_and_grad(cfg, gpu["params"], batches[0], remat=False)
+    res["remat_loss_gap"] = abs(float(on) - float(off))
+    res["remat_grad_rel_frobenius"] = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
+                                          for a, b in zip(tree_leaves(g_on), tree_leaves(g_off)))
+    log(f"  [llama3.2-3b, 2 layers, fp32] remat on vs off on the card: loss gap "
+        f"{res['remat_loss_gap']:.3g} (limit 1e-6), largest relative Frobenius gap of a "
+        f"gradient leaf {res['remat_grad_rel_frobenius']:.3g} (printed)")
+    check(res["remat_loss_gap"] <= 1e-6, "remat on and off give losses more than 1e-6 apart")
+    del gpu, g_on, g_off
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  ({res['seconds']:.1f} s)")
+    report.setdefault("lm_training", {})["llama3.2-3b 2 layers fp32"] = res
+    return res
+
+
+def run_lm_train_reference(name: str, seed: int, steps: int = 3) -> dict:
+    """Phase 8 for LM training: one reduced configuration (fp32), the same
+    weights on the card and on the CPU, ``steps`` donated steps on 4 x 64
+    in lockstep (train_lockstep): losses within 1e-4, parameters and
+    moments under the near-zero exemption, no kernel launched; jamba's
+    gaps printed, not held (its fp32 conditioning, LM_REFERENCE)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import init_train_state
+
+    cfg = get_arch(name).reduced()
+    cpu = init_train_state(cfg, seed, "cpu")
+    gpu = state_to(cpu, DEVICE)
+    rng = np.random.default_rng(seed)
+    batches = [lm_train_batch(cfg, rng, 4, 64) for _ in range(steps)]
+    held = name != "jamba-1.5-large-398b"
+    reset_launch_counts()
+    res = train_lockstep(f"{name} reduced", cfg, cpu, gpu, batches, hold=held)
+    launches, _ = launch_counts()
+    check(not any(launches.values()), f"{name} reduced: training launched kernels {launches}")
+    log(f"  [{name} reduced, fp32] {steps} train steps 4 x 64, card vs CPU in lockstep: loss "
+        f"gaps {[f'{g:.3g}' for g in res['gaps']]}, parameters "
+        f"{[f'{g:.3g}' for g in res['params']]}, moments {[f'{g:.3g}' for g in res['moments']]}"
+        f" ({'limits 1e-4, 1e-4, 1e-5' if held else 'not held: LM_REFERENCE'}); "
+        f"{res['routing'][-1]}")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -3114,6 +3519,13 @@ def main(argv=None) -> int:
         log(f"== 9b LM workbench: {name} (seed {args.seed}), prefill then 32 greedy decode "
             "steps, then its fp32 checks")
         paths[f"{name} prefill + decode"] = run_lm_family(name, report, args.seed)
+    log(f"== 9c LM training (seed {args.seed}): {TRAIN_STEPS} donated steps a configuration "
+        "on TokenPipeline batches, remat, the einsum path; then fp32 checks on 2 layers")
+    t0 = time.perf_counter()
+    for name, batch, seq, cut in LM_TRAIN_RUNS:
+        run_lm_train(name, batch, seq, cut, report, args.seed)
+    run_lm_train_fp32(report, args.seed)
+    log(f"  ({time.perf_counter() - t0:.1f} s phase)")
     order = [f"{m} {p}" for p in ("training", "serving") for m in ("rgcn", "rgat", "hgt")]
     order += ["rgcn raf training"] + [f"{m} unfused {p}" for p in ("training", "serving")
                                       for m in ("rgat", "hgt")]
@@ -3149,6 +3561,8 @@ def main(argv=None) -> int:
             args.ref_scale, model, executor=executor, fuse_epilogue=fuse)
     for name in LM_REFERENCE:
         report["reference"][f"{name} reduced"] = run_lm_reference(name, args.seed)
+    for name in LM_REFERENCE:
+        report["reference"][f"{name} reduced training"] = run_lm_train_reference(name, args.seed)
     report["wall_s"] = time.perf_counter() - t_start
     log(f"  whole run {report['wall_s']:.1f} s")
 

@@ -73,10 +73,13 @@ in the background observes tables before steps *i..i+k-1* wrote back:
   consumer right before the step.  Bit-exact parity with the serial loop,
   overlapping only the sampling stage.
 
-The port's copy of the reference's ``repro/data/__init__.py``: it exports
-the same names except ``SyntheticCorpus`` and ``TokenPipeline`` (the LM
-token feed, ported with LM training).  Nothing here imports torch: spawned
-sampler workers import this package when they unpickle their task.  The
+The LM's token feed sits on the same ``Prefetcher``:
+:class:`~repro_torch.data.pipeline.SyntheticCorpus` and
+:class:`~repro_torch.data.pipeline.TokenPipeline` (numpy only).
+
+The port's copy of the reference's ``repro/data/__init__.py``, exporting the
+same names.  Nothing here imports torch: spawned sampler workers import
+this package when they unpickle their task.  The
 GPU side of the pipeline lives in the session and the executors: a
 ``stage`` run by the producer thread copies to the device on PyTorch's
 current stream of that thread (the legacy default stream, which the
@@ -84,6 +87,7 @@ trainer's thread shares, so the copies and the steps stay in order), and
 worker-staged arrays reach the card through ``Executor.stage_from_host``.
 """
 
+from repro_torch.data.pipeline import SyntheticCorpus, TokenPipeline
 from repro_torch.data.prefetch import Prefetcher
 from repro_torch.data.sample_stream import SampleStream
 from repro_torch.data.staging import (
@@ -105,6 +109,8 @@ from repro_torch.data.worker_pool import (
 
 __all__ = [
     "Prefetcher",
+    "SyntheticCorpus",
+    "TokenPipeline",
     "SampleStream",
     "StackRecipe",
     "stack_batch_host",

@@ -19,8 +19,8 @@ hand-rolling thread + queue management:
     producer is exhausted (infinite when ``None``).
 
 A copy of the reference's ``repro/data/prefetch.py``; only this docstring
-differs (the LM ``TokenPipeline`` that also sits on it in the reference is
-not ported yet).  It imports neither torch nor numpy.
+differs.  The LM's ``TokenPipeline`` (``data/pipeline.py``) sits on it too.
+It imports neither torch nor numpy.
 """
 
 from __future__ import annotations

@@ -19,10 +19,13 @@ in multiples of 8 elements, as every tensor the model makes is.
 The kernel has no backward, nor has the reference's (its LM training runs
 the XLA attention path, ``make_train_step(use_pallas=False)``).  So on CUDA
 the op raises :class:`RuntimeError` when grad mode is on and q, k or v
-requires grad, instead of returning a result with no ``grad_fn``; under
-``torch.inference_mode()`` or ``torch.no_grad()``, as every LM path of the
-port calls it, nothing changes.  The CPU path differentiates through
-:func:`attention_ref`.
+requires grad, instead of returning a result with no ``grad_fn``.  That is
+the LM training path's own guard: the port trains on the einsum path
+(``make_train_step(use_kernel=False)``, the default), and
+``make_train_step(use_kernel=True)`` on the card fails here on its first
+step.  Under ``torch.inference_mode()`` or ``torch.no_grad()``, as every
+serving path of the port calls it, nothing changes.  The CPU path
+differentiates through :func:`attention_ref`.
 """
 
 from __future__ import annotations

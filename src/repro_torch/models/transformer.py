@@ -1,35 +1,59 @@
 """Period-structured transformer LM: one implementation, ten architectures.
 
-The port's copy of the serving half of ``repro/models/transformer.py``.
-Parameters are stacked on the period axis, ``(n_periods, n_slots, ...)``, as
-in the reference, and the period loop is a Python loop.  Block kinds inside
-a period (attention / Mamba-2, dense MLP / MoE) are static Python
-structure.  Each entry point returns or is a plain callable over a dict of
-tensors that runs under ``torch.inference_mode()``.
+The port's copy of ``repro/models/transformer.py``.  Parameters are stacked
+on the period axis, ``(n_periods, n_slots, ...)``, as in the reference, and
+the period loop is a Python loop.  Block kinds inside a period (attention /
+Mamba-2, dense MLP / MoE) are static Python structure.
 
 Entry points:
   * ``init_params``       — materialize parameters on a device from a seed;
   * ``forward``           — prefill forward to logits;
+  * ``loss_fn``           — next-token cross-entropy (float32 ``log_softmax``);
+  * ``init_train_state``/``make_train_step`` — AdamW over the parameter
+    tree, the state updated in place (the reference donates it);
   * ``make_prefill_step`` — (params, batch) -> (last-position logits, cache);
     for an encoder-only configuration, (forward logits, {});
   * ``init_decode_cache``/``make_serve_step`` — single-token decode against
     the KV and SSM caches (sliding-window ring buffer with ``window``), the
     cache updated in place.
 
-Batch dicts by family: decoder LMs take ``{tokens}``; the vision model adds
-``patch_embeds`` ``[b, frontend_tokens, frontend_dim]`` (its frontend is a
-stub: precomputed embeddings through ``frontend_proj``, put before the
-text); the audio model takes ``{frames}`` ``[b, s, frontend_dim]``.  LM
-training (``loss_fn``, ``init_train_state``, ``make_train_step``) waits for
-a later slice (ROADMAP.md §A.3), as does ``ParallelCtx`` (§A.5).
+Serving (``forward``, prefill, decode) runs under ``torch.inference_mode()``
+and reaches the flash-attention kernel by default.  Training differentiates
+a forward of its own (``_train_logits``) through the einsum attention path
+(``use_kernel=False``, as the reference trains on its XLA path,
+``make_train_step(use_pallas=False)``): the kernel has no backward, and on
+CUDA ``flash_attention`` raises under grad, so ``use_kernel=True`` there
+fails on the first step.  With ``remat`` (the default) each period runs
+under ``torch.utils.checkpoint`` and is recomputed in the backward, the
+counterpart of the reference's ``jax.checkpoint`` of the scan body; nothing
+on the path draws random numbers, so the recomputation equals the first
+pass, MoE routing included.
+
+Where training departs from the reference: ``init_train_state`` draws the
+moments as float32 zeros, where the reference's are zeros in the
+parameters' type until its first update promotes them (the same values);
+``make_train_step(donate=True)`` writes the update into the state's own
+tensors (``repro_torch.optim.adam_update_``, bit for bit ``adam_update``)
+and returns the same dict; the step counter stays a CPU scalar, as in
+``adam_init``.
+
+Batch dicts by family: decoder LMs take ``{tokens}`` (training adds
+``labels``); the vision model adds ``patch_embeds`` ``[b, frontend_tokens,
+frontend_dim]`` (its frontend is a stub: precomputed embeddings through
+``frontend_proj``, put before the text; its loss scores text positions
+only); the audio model takes ``{frames}`` ``[b, s, frontend_dim]`` and its
+loss takes no shift.  Numpy or tensors; they are moved to the parameters'
+device.  ``ParallelCtx`` waits for a later slice (ROADMAP.md §A.5).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -38,10 +62,14 @@ from repro_torch.models.layers import embed_init, he_init, rms_norm
 from repro_torch.models.mamba2 import (_causal_conv, _ssd_chunked, decode_mamba_block,
                                        mamba_block, mamba_params)
 from repro_torch.models.moe import mlp_block, mlp_params, moe_block, moe_params
+from repro_torch.optim.adam import AdamConfig, adam_update, adam_update_, tree_map
 
 __all__ = [
     "init_params",
     "forward",
+    "loss_fn",
+    "init_train_state",
+    "make_train_step",
     "init_decode_cache",
     "make_serve_step",
     "make_prefill_step",
@@ -161,35 +189,41 @@ def _mamba_prefill(p: Dict, cfg: ArchConfig, x: torch.Tensor):
     return x + y @ p["wo"], (conv_state, H)
 
 
+def _period(cfg: ArchConfig, take, per: int, rows: List[Tuple], x: torch.Tensor,
+            positions: torch.Tensor, window: Optional[int], use_kernel: bool,
+            cache_out: Optional[Dict] = None) -> torch.Tensor:
+    """One period's blocks over ``x``; ``take(kind, per, row)`` gives a
+    block's parameters.  With ``cache_out`` (prefill), each attention
+    block's (k, v) is written into ``cache_out["k"/"v"]`` and each Mamba
+    block's states into ``cache_out["conv"/"ssm"]``, at ``[per, row]``."""
+    prefill = cache_out is not None
+    for mixer, m, ffn, f in rows:
+        p = take(mixer, per, m)
+        if mixer == "attn" and not prefill:
+            x = attention_block(p, cfg, x, positions, window=window, use_kernel=use_kernel)
+        elif mixer == "attn":
+            x, (k, v) = attention_block(p, cfg, x, positions, window=window,
+                                        use_kernel=use_kernel, return_kv=True)
+            cache_out["k"][per, m] = k
+            cache_out["v"][per, m] = v
+        elif not prefill:
+            x = mamba_block(p, cfg, x)
+        else:
+            x, (conv, ssm) = _mamba_prefill(p, cfg, x)
+            cache_out["conv"][per, m] = conv
+            cache_out["ssm"][per, m] = ssm
+        if ffn is not None:
+            x = (moe_block if ffn == "moe" else mlp_block)(take(ffn, per, f), cfg, x)
+    return x
+
+
 def _layers(cfg: ArchConfig, params: Dict, x: torch.Tensor, positions: torch.Tensor,
             window: Optional[int], use_kernel: bool, cache_out: Optional[Dict] = None):
-    """Every period's blocks over ``x``.  With ``cache_out`` (prefill),
-    each attention block's (k, v) is written into ``cache_out["k"/"v"]``
-    and each Mamba block's states into ``cache_out["conv"/"ssm"]``, at
-    ``[period, row]``."""
-    blocks = params["blocks"]
-    prefill = cache_out is not None
-    rows = _slot_rows(cfg, prefill=prefill)
+    """Every period's blocks over ``x`` (see ``_period``)."""
+    rows = _slot_rows(cfg, prefill=cache_out is not None)
+    take = partial(_take, params["blocks"])
     for per in range(cfg.n_periods):
-        for mixer, m, ffn, f in rows:
-            p = _take(blocks, mixer, per, m)
-            if mixer == "attn" and not prefill:
-                x = attention_block(p, cfg, x, positions, window=window, use_kernel=use_kernel)
-            elif mixer == "attn":
-                x, (k, v) = attention_block(p, cfg, x, positions, window=window,
-                                            use_kernel=use_kernel, return_kv=True)
-                cache_out["k"][per, m] = k
-                cache_out["v"][per, m] = v
-            elif not prefill:
-                x = mamba_block(p, cfg, x)
-            else:
-                x, (conv, ssm) = _mamba_prefill(p, cfg, x)
-                cache_out["conv"][per, m] = conv
-                cache_out["ssm"][per, m] = ssm
-            if ffn == "moe":
-                x = moe_block(_take(blocks, "moe", per, f), cfg, x)
-            elif ffn == "mlp":
-                x = mlp_block(_take(blocks, "mlp", per, f), cfg, x)
+        x = _period(cfg, take, per, rows, x, positions, window, use_kernel, cache_out)
     return x
 
 
@@ -208,6 +242,106 @@ def forward(
         x = _layers(cfg, params, x, positions, window, use_kernel)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x @ params["head"]
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def _train_logits(cfg: ArchConfig, params: Dict, batch: Dict, window: Optional[int],
+                  use_kernel: bool, remat: bool) -> torch.Tensor:
+    """The forward to logits with grad: ``_embed_inputs`` -> periods (each
+    under ``checkpoint`` with ``remat``) -> final norm -> head.  Every stack
+    entry of a block leaf reaches its period as a view from one ``unbind``
+    of the leaf, so the backward stacks each leaf's gradient once (indexing
+    each entry instead builds a zero-filled leaf-sized gradient per entry)."""
+    x = _embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    entries = {kind: {leaf: a.flatten(0, 1).unbind(0) for leaf, a in blk.items()}
+               for kind, blk in params["blocks"].items()}
+    slots = {kind: next(iter(blk.values())).shape[1] for kind, blk in params["blocks"].items()}
+
+    def take(kind, per, row):
+        return {leaf: views[per * slots[kind] + row] for leaf, views in entries[kind].items()}
+
+    rows = _slot_rows(cfg)
+    for per in range(cfg.n_periods):
+        if remat:
+            x = checkpoint(_period, cfg, take, per, rows, x, positions, window, use_kernel,
+                           use_reentrant=False)
+        else:
+            x = _period(cfg, take, per, rows, x, positions, window, use_kernel)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["head"]
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, use_kernel: bool = False,
+            remat: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of ``batch["labels"]``, with
+    grad: the vision model scores its text positions only, the audio encoder
+    takes no shift, ``log_softmax`` runs in float32."""
+    logits = _train_logits(cfg, params, batch, window, use_kernel, remat)
+    labels = torch.as_tensor(batch["labels"], dtype=torch.long, device=logits.device)
+    if cfg.frontend == "vision":
+        logits = logits[:, cfg.frontend_tokens:]  # loss on text positions only
+    if cfg.is_decoder and cfg.frontend != "audio":
+        logits, labels = logits[:, :-1], labels[:, 1:]  # next-token prediction
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])
+    return nll.mean()
+
+
+def _value_and_grad(cfg: ArchConfig, params: Dict, batch: Dict,
+                    **kw) -> Tuple[torch.Tensor, Dict]:
+    """``loss_fn`` (keywords passed on) and its gradient at every parameter
+    leaf, as ``(loss, tree like params)``; the caller's tensors are left as
+    they are (autograd tracks detached aliases of them)."""
+    live = []
+
+    def track(t):
+        live.append(t.detach().requires_grad_())
+        return live[-1]
+
+    tracked = tree_map(track, params)
+    with torch.enable_grad():
+        loss = loss_fn(cfg, tracked, batch, **kw)
+        grads = iter(torch.autograd.grad(loss, live))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def init_train_state(cfg: ArchConfig, seed: int = 0, device=None) -> Dict:
+    """``{"params": init_params(cfg, seed, device), "opt": {"m", "v",
+    "step"}}``: the moments float32 zeros in the parameters' shapes (see the
+    module note), the step an int32 scalar on the CPU."""
+    params = init_params(cfg, seed, device)
+
+    def zeros(t):
+        return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+
+    return {"params": params, "opt": {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                                      "step": torch.zeros((), dtype=torch.int32)}}
+
+
+def make_train_step(cfg: ArchConfig, adam_cfg: Optional[AdamConfig] = None,
+                    use_kernel: bool = False, donate: bool = True):
+    """``step(state, batch) -> (state, loss)``: ``loss_fn`` (remat on) and
+    its gradients over every parameter leaf, then AdamW (``adam_cfg``, by
+    default lr 3e-4, weight decay 0.01, clip 1.0).  ``donate=True`` writes
+    the parameters and moments into the state's tensors and returns the same
+    dict; ``donate=False`` returns new trees."""
+    adam_cfg = adam_cfg or AdamConfig(lr=3e-4, weight_decay=0.01, grad_clip=1.0)
+
+    def step(state: Dict, batch: Dict) -> Tuple[Dict, torch.Tensor]:
+        params = state["params"]
+        loss, grads = _value_and_grad(cfg, params, batch, use_kernel=use_kernel)
+        if donate:
+            adam_update_(adam_cfg, params, grads, state["opt"])
+            return state, loss
+        params, opt = adam_update(adam_cfg, params, grads, state["opt"])
+        return {"params": params, "opt": opt}, loss
+
+    return step
 
 
 def init_decode_cache(

@@ -1318,3 +1318,82 @@ def test_cuda_dp_local_fit_ranks_agree(cuda_device):
     for name in ("stacked_mean_linear", "stacked_mean_linear_dh"):
         assert launched[name] > 0 and rank1[name]["launches"] == launched[name]
     _assert_no_dp_leaks()
+
+
+def _lm_train_pair(cuda_device, name="llama3.2-3b", seed=0):
+    """A reduced configuration's train state (fp32) on the CPU and a copy of
+    it on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_train_state
+    from repro_torch.optim.adam import tree_map
+
+    cfg = get_arch(name).reduced()
+    cpu = init_train_state(cfg, seed, "cpu")
+    gpu = {"params": tree_map(lambda t: t.to(cuda_device), cpu["params"]),
+           "opt": tree_map(lambda t: t.clone(), cpu["opt"])}
+    gpu["opt"]["m"] = tree_map(lambda t: t.to(cuda_device), cpu["opt"]["m"])
+    gpu["opt"]["v"] = tree_map(lambda t: t.to(cuda_device), cpu["opt"]["v"])
+    return cfg, cpu, gpu
+
+
+def _lm_train_batch(cfg, seed):
+    r = np.random.default_rng(seed)
+    return {"tokens": r.integers(0, cfg.vocab, (2, 64)), "labels": r.integers(0, cfg.vocab, (2, 64))}
+
+
+@pytest.mark.cuda
+def test_cuda_lm_train_steps_match_the_cpu(cuda_device):
+    """Reduced llama3.2-3b (fp32): 3 donated train steps on the card follow
+    the CPU's losses within 1e-4; no kernel is launched (the training path
+    runs the einsum attention, as the reference's does)."""
+    from repro_torch.models import make_train_step
+
+    cfg, cpu, gpu = _lm_train_pair(cuda_device)
+    step = make_train_step(cfg)
+    losses = {"cpu": [], "gpu": []}
+    kops.reset_launch_counts()
+    for k in range(3):
+        batch = _lm_train_batch(cfg, k)
+        for name in ("cpu", "gpu"):
+            state = cpu if name == "cpu" else gpu
+            _, loss = step(state, batch)
+            losses[name].append(float(loss))
+    assert not any(info.launches for info in kops.KERNELS.values())
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_train_step_with_the_kernel_raises(cuda_device):
+    """``use_kernel=True`` reaches flash_attention under grad, which raises on
+    CUDA (the kernel has no backward); no fall-back to the einsum path."""
+    from repro_torch.models import make_train_step
+
+    cfg, _, gpu = _lm_train_pair(cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        make_train_step(cfg, use_kernel=True)(gpu, _lm_train_batch(cfg, 0))
+
+
+@pytest.mark.cuda
+def test_cuda_lm_in_place_update_is_bitwise_adam_update(cuda_device, monkeypatch):
+    """One step's gradients on the card through ``adam_update`` and through
+    the in-place update the donated step runs: every bit equal."""
+    import repro_torch.models.transformer as transformer
+    from repro_torch.models import make_train_step
+    from repro_torch.optim.adam import adam_update, adam_update_, tree_leaves, tree_map
+
+    cfg, _, gpu = _lm_train_pair(cuda_device)
+    seen = []
+
+    def update_(adam_cfg, params, grads, opt):
+        want = adam_update(adam_cfg, params, grads, opt)  # new trees: params untouched
+        seen.append(want)
+        return adam_update_(adam_cfg, params, grads, opt)
+
+    monkeypatch.setattr(transformer, "adam_update_", update_)
+    for k in range(2):
+        state, _ = make_train_step(cfg)(gpu, _lm_train_batch(cfg, k))
+        want_p, want_opt = seen[k]
+        for a, b in zip(tree_leaves([state["params"], state["opt"]]),
+                        tree_leaves([want_p, want_opt])):
+            assert a.device == b.device and torch.equal(a, b)
+    assert tree_map(lambda t: t.device.type, state["params"])["head"] == "cuda"

@@ -214,3 +214,32 @@ def test_sampler_worker_stays_torch_free(tmp_path):
             arena.unlink()
             if mstore is not None:
                 mstore.unlink()
+
+
+def test_lm_training_modules_stay_jax_free_and_the_data_package_torch_free():
+    """In fresh processes: ``repro_torch.data`` (with the LM token pipeline)
+    imports none of torch, JAX and the reference package, and feeds a
+    batch; ``repro_torch.launch.train_lm`` imports neither JAX nor the
+    reference package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    checks = {
+        "repro_torch.data": ("torch", "jax", "jaxlib", "repro"),
+        "repro_torch.launch.train_lm": ("jax", "jaxlib", "repro"),
+    }
+    for module, banned in checks.items():
+        code = (
+            "import importlib, json, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "from repro_torch.data.pipeline import SyntheticCorpus, TokenPipeline\n"
+            "pipe = TokenPipeline(SyntheticCorpus(vocab=64, seq_len=8, num_shards=2), 2)\n"
+            "shape = list(next(pipe)['tokens'].shape)\n"
+            "pipe.close()\n"
+            "print(json.dumps({'shape': shape, 'mods': sorted({k.split('.')[0] for k in "
+            "sys.modules})}))\n"
+        )
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             env=env, cwd=str(REPO), timeout=300)
+        assert out.returncode == 0, out.stderr
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        assert res["shape"] == [2, 8]
+        assert not set(banned) & set(res["mods"]), (module, set(banned) & set(res["mods"]))

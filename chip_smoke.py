@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                 # ogbn-mag at scale 0.1, the LM configs
     python3 chip_smoke.py --scale 1.0 --out results/smoke.json
 
-Phases, run in the order 1-6, 9, 9b, 9c, 7, 8 (any failure ends the run
+Phases, run in the order 1-6, 9, 9b, 9c, 7, 7c, 8 (any failure ends the run
 with a non-zero exit and no result line):
 
   1. environment — torch/CUDA versions, the card's name and power limit;
@@ -152,6 +152,23 @@ with a non-zero exit and no result line):
      989 TFLOP/s, library call scaled_dot_product_attention) and at one sq
      = 1 decode shape; the redesigned kernels' ptxas registers and spills
      again;
+  7c. launch layouts (the tuning table, kernels 1, 3 and 4) — at every
+     shape of repro_torch.kernels.autotune.DEFAULT_SHAPES, in each variant
+     (kernel 4: R-GAT's and HGT's operands; kernel 3: contiguous and HGT's
+     head-major views): the port's restatement of each entry point's layout
+     rule against the entry point's own layout query, for the rule and every
+     candidate; every candidate layout's raw launch against the plain
+     version (atol/rtol 1e-5), and whether it equals the rule's launch bit
+     for bit; the measured sweep (autotune.build_table(mode="measured"):
+     each candidate's CUDA-graph time against the rule's, the winner kept
+     only past its own spread), its table printed as one JSON line
+     {"tuning_table": ...} for src/repro_torch/kernels/tuning_table.json;
+     then R-GCN, R-GAT, HGT and unfused HGT through raf_spmd, 5 steps each
+     with kernels.autotune False and True from one seed: losses within
+     1e-5 (bit-equality printed), every launch of the False run in its
+     rule's layout, every launch of the True run in the committed table's
+     layout where its shape class has an entry (some must) and the rule's
+     elsewhere;
   8. card vs CPU — the same training session at a small scale on the GPU
      (kernels) and on the CPU (plain PyTorch), for R-GCN, R-GAT and HGT, the
      raf executor's R-GCN and the unfused R-GAT and HGT: 3-step losses within 1e-5,
@@ -2233,14 +2250,15 @@ def run_lm_train_reference(name: str, seed: int, steps: int = 3) -> dict:
 
 def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn",
                    executor: str = "raf_spmd", fuse_epilogue: bool = True,
-                   pipeline=None, learnable: bool = True, dp=None):
+                   pipeline=None, learnable: bool = True, dp=None, autotune: bool = False):
     from repro_torch.api import DataConfig, HetaConfig, ModelConfig
 
     cfg = HetaConfig(
         data=DataConfig(dataset="ogbn-mag", scale=scale, fanouts=(4, 3),
                         batch_size=batch_size),
         model=ModelConfig(model=model, train_learnable=learnable),
-    ).updated(run=dict(executor=executor), kernels=dict(fuse_epilogue=fuse_epilogue))
+    ).updated(run=dict(executor=executor),
+              kernels=dict(fuse_epilogue=fuse_epilogue, autotune=autotune))
     if dp is not None:
         cfg = cfg.updated(scale=dp)
     return cfg if pipeline is None else cfg.updated(pipeline=dict(enabled=True, **pipeline))
@@ -2248,16 +2266,17 @@ def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn",
 
 def build_session(scale: float, device, max_degree: int = 16, batch_size: int = 1024,
                   model: str = "rgcn", executor: str = "raf_spmd", fuse_epilogue: bool = True,
-                  graph=None, pipeline=None, learnable: bool = True, dp=None):
+                  graph=None, pipeline=None, learnable: bool = True, dp=None,
+                  autotune: bool = False):
     """A compiled session; ``graph`` reuses a graph built (and bounded)
     before; ``pipeline`` (a dict of ``PipelineConfig`` fields) turns the
     host pipeline on; ``dp`` (a dict of ``ScaleConfig`` fields) the
-    data-parallel tier."""
+    data-parallel tier; ``autotune`` the tuning table's layouts."""
     from repro_torch.api import Heta
     from repro_torch.serve import bounded_graph
 
     sess = Heta(session_config(scale, batch_size, model, executor, fuse_epilogue, pipeline,
-                               learnable, dp),
+                               learnable, dp, autotune),
                 device=device)
     g = graph if graph is not None else bounded_graph(sess.build_graph(), max_degree)
     sess.build_graph(g)
@@ -2655,11 +2674,11 @@ class OperandLayouts:
 
         inner = self._inner = sra.softmax_combine_forward
 
-        def spy(e, mask, v):
+        def spy(e, mask, v, **blocks):
             for name, t in (("e", e), ("v", v)):
                 order = tuple(sorted(range(t.dim()), key=lambda d: (-t.stride(d), d)))
                 self.seen[(name, t.is_contiguous(), order)] += 1
-            return inner(e, mask, v)
+            return inner(e, mask, v, **blocks)
 
         sra.softmax_combine_forward = spy
         return self
@@ -3168,6 +3187,175 @@ def run_dp(scale: float, report: dict, graph, steps: int = 20) -> tuple:
     return rgcn_shapes, hgt_shapes
 
 
+# phase 7c's fits through raf_spmd: (model, fuse_epilogue)
+LAYOUT_FITS = (("rgcn", True), ("rgat", True), ("hgt", True), ("hgt", False))
+LAYOUT_STEPS = 5
+
+
+def rule_layout(name: str, shape) -> tuple:
+    """The layout the entry point's rule takes for a recorded launch shape,
+    as its layout query answers."""
+    from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+    if name == "stacked_mean_linear":
+        rb, n, f, di, do, _ = shape
+        return 16 * sra.mean_linear_layout(rb, n, do, 0), 64, 32
+    if name == "stacked_attn_epilogue":
+        rb, n, f, di, nh, dh, _, uv, ua = shape[:9]
+        return 16 * sra.attn_layout(f, di, nh, dh, uv > 0, ua > 0, 0)[0], 64, 32
+    *_, nh, dh = shape
+    rows, depth = sra.softmax_combine_layout(nh, dh, 0, 0)
+    return rows, 1024, depth
+
+
+def table_layouts(name: str, shape, entries: dict) -> list:
+    """The table's layouts for a recorded launch shape's class (kernel 3's
+    record holds no d_in: every entry of its class at any d_in)."""
+    from repro_torch.kernels.ops import shape_class
+
+    n, f = shape[1], shape[2]
+    if name == "stacked_mean_linear":
+        d_in, d_out = shape[3], shape[4]
+    elif name == "stacked_attn_epilogue":
+        d_in, d_out = shape[3], shape[4] * shape[5]
+    else:
+        d_in, d_out = None, shape[3] * shape[4]
+    want = shape_class(name, n, f, d_in or 0, d_out).split("/")
+    return [(e["block_n"], e["block_out"], e["block_in"]) for key, e in entries.items()
+            if key.split("/")[:4] == want[:4] and key.split("/")[5] == want[5]
+            and (d_in is None or key.split("/")[4] == want[4])]
+
+
+def layout_plain(op: str, ops: dict):
+    from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+    if op == "stacked_mean_linear":
+        return sra.stacked_mean_linear_ref(ops["h"], ops["mask"], ops["w"], ops["b"],
+                                           ops["slot_u"])
+    if op == "stacked_attn_epilogue":
+        return sra.stacked_attn_epilogue_ref(
+            ops["h"], ops["mask"], ops["qv"], ops["eb"], ops["we"], ops["wv"], ops["pe"],
+            ops["pv"], ops["us"], ops["num_heads"], ops["head_dim"], ops["scale"], ops["slope"])
+    return sra.stacked_softmax_combine_ref(ops["e"], ops["mask"], ops["v"])
+
+
+def run_layouts(scale: float, report: dict, graph) -> None:
+    """Phase 7c (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import KERNELS, load_tuning_table, reset_launch_counts
+    from repro_torch.kernels.stacked_relation_agg import ops as sra
+
+    t0 = time.perf_counter()
+    out = report["layouts"] = {}
+    queries = 0
+    for op, rb, n, f, di, do in autotune.DEFAULT_SHAPES:
+        nh, dh = autotune._heads_of(do)
+        if op == "stacked_mean_linear":
+            check(sra.mean_linear_layout(rb, n, do, 0) == autotune.mean_linear_rm_rule(rb, n, do)
+                  and all(sra.mean_linear_layout(rb, n, do, rm) == rm for rm in (1, 4)),
+                  f"{op} {(rb, n, f, di, do)}: the restated rule differs from the entry point's")
+            queries += 3
+        elif op == "stacked_attn_epilogue":
+            for variant in autotune.VARIANTS[op]:
+                two, post = autotune._attn_variant(variant)
+                for rm in (0, 1, 4):
+                    mine = autotune.attn_choose(f, di, nh, dh, two, post, rm)
+                    check(sra.attn_layout(f, di, nh, dh, two, post, rm)
+                          == ((0, 0) if mine is None else mine[:2]),
+                          f"{op} {(f, di, nh, dh, variant, rm)}: the restated layout differs")
+                    queries += 1
+        else:
+            for rows, _, depth in [(0, 0, 0)] + autotune.candidates(op, n, f, di, do):
+                mine = autotune.softmax_combine_choose(nh, dh, rows, depth)
+                check(sra.softmax_combine_layout(nh, dh, rows, depth)
+                      == ((0, 0) if mine is None else mine[:2]),
+                      f"{op} {(nh, dh, rows, depth)}: the restated layout differs")
+                queries += 1
+    log(f"  {queries} layout queries: the restated rules and layouts agree with the entry "
+        "points'")
+    worst = {op: 0.0 for op in autotune.OPS}
+    same = {op: [0, 0] for op in autotune.OPS}
+    for i, (op, rb, n, f, di, do) in enumerate(autotune.DEFAULT_SHAPES):
+        for variant in autotune.VARIANTS[op]:
+            ops = autotune.operands(op, rb, n, f, di, do, variant, 4000 + i)
+            plain = layout_plain(op, ops)
+            autotune.launch(op, ops, None)
+            torch.cuda.synchronize()
+            rule_out = ops["out"].clone()
+            for cand in autotune.candidates(op, n, f, di, do):
+                autotune.launch(op, ops, cand)
+                torch.cuda.synchronize()
+                worst[op] = max(worst[op], close(f"{op} {variant} {cand}", (rb, n, f, di, do),
+                                                 ops["out"], plain))
+                same[op][0] += bool(torch.equal(ops["out"], rule_out))
+                same[op][1] += 1
+            del ops, plain, rule_out
+    torch.cuda.empty_cache()
+    log(f"  every candidate layout against the plain version: max abs err {worst}; bit-equal "
+        f"to the rule's launch {({op: f'{a} of {b}' for op, (a, b) in same.items()})}")
+    out.update(queries=queries, max_abs_err=worst, bit_equal_to_rule=same)
+
+    t1 = time.perf_counter()
+    details = {}
+    table = autotune.build_table(mode="measured", details=details)
+    autotune.validate_table(table)
+    for key, d in details.items():
+        log(f"  {key}: rule {d['rule']} {d['rule_us']:.3f} us (spread {d['rule_spread_us']:.3f}), "
+            f"fastest {d['winner']} {d['winner_us']:.3f} us (spread {d['spread_us']:.3f}) -> "
+            f"{'winner kept' if d['kept'] else 'rule kept'}; candidates "
+            + ", ".join(f"{c} {t:.3f}" for c, t in d["costs_us"].items()))
+    log(f"  measured sweep: {len(table['entries'])} entries in {time.perf_counter() - t1:.1f} s "
+        f"on {table['card']}; the table:")
+    log(json.dumps({"tuning_table": table}, sort_keys=True))
+    out.update(sweep=details, table=table)
+
+    entries = load_tuning_table()["entries"]
+    check(bool(entries), "no committed tuning table: kernels.autotune=True has nothing to read")
+    out["fits"] = {}
+    for model, fuse in LAYOUT_FITS:
+        label = model if fuse else f"{model} unfused"
+        losses, layouts = {}, {}
+        for tuned in (False, True):
+            sess, _ = build_session(scale, None, model=model, fuse_epilogue=fuse, graph=graph,
+                                    autotune=tuned)
+            reset_launch_counts()
+            res = sess.fit(LAYOUT_STEPS)
+            torch.cuda.synchronize()
+            losses[tuned] = [float(x) for x in res["losses"]]
+            layouts[tuned] = {name: dict(info.layouts) for name, info in KERNELS.items()
+                              if info.layouts}
+            del sess
+        check(all(np.isfinite(losses[True])), f"{label}: autotune losses {losses[True]}")
+        gap = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+        for name, lays in layouts[False].items():
+            for shape, lay in lays:
+                check(lay == rule_layout(name, shape),
+                      f"{label}: autotune=False launched {name} {shape} in {lay}")
+        hits = 0
+        for name, lays in layouts[True].items():
+            for shape, lay in lays:
+                want = table_layouts(name, shape, entries)
+                check(lay in want if want else lay == rule_layout(name, shape),
+                      f"{label}: autotune=True launched {name} {shape} in {lay}, the table "
+                      f"holds {want}")
+                hits += bool(want)
+        check(hits > 0, f"{label}: no launch of the autotune fit had a table entry")
+        check(gap <= TOL["atol"], f"{label}: autotune and rule losses differ by {gap:.3g}")
+        log(f"  [{label}] {LAYOUT_STEPS} steps, autotune False / True: losses within {gap:.3g} "
+            f"({'bit-equal' if losses[True] == losses[False] else 'not bit-equal'}); "
+            f"{hits} launch shapes from the table: " + "; ".join(
+                f"{name} {shape} {lay} x{c}" for name, lays in layouts[True].items()
+                for (shape, lay), c in lays.items()))
+        out["fits"][label] = dict(
+            losses=losses, gap=gap, bit_equal=losses[True] == losses[False], table_hits=hits,
+            layouts={str(t): {name: {str(k): c for k, c in lays.items()}
+                              for name, lays in layouts[t].items()} for t in (False, True)})
+    log(f"  ({time.perf_counter() - t0:.1f} s phase)")
+
+
 def run_reference(scale: float, model: str = "rgcn", steps: int = 3,
                   executor: str = "raf_spmd", fuse_epilogue: bool = True) -> dict:
     """Phase 8: the port on the card against the port on the CPU: 3-step
@@ -3550,6 +3738,10 @@ def main(argv=None) -> int:
         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.3g} ms ({t['bound_by']}), max abs err {err:.3g}")
     report["flash_decode_shape"] = dict(shape=list(FLASH_DECODE_SHAPE), max_abs_err=err, **t)
+
+    log("== 7c launch layouts of kernels 1, 3 and 4: the restated rules, every candidate "
+        "against the plain version, the measured sweep, raf_spmd fits with kernels.autotune")
+    run_layouts(args.scale, report, g)
 
     log(f"== 8 card vs CPU (scale {args.ref_scale}, batch 32; the LM workbench's "
         "configurations, reduced)")

@@ -14,8 +14,8 @@ section dataclasses mirroring the pipeline stages:
   * :class:`PipelineConfig`  — async host pipeline (prefetch depth, snapshot
     staleness policy; see the ``repro.data`` package docstring)
   * :class:`KernelConfig`    — hand-written CUDA kernel layer (per-op
-    toggles; the reference's block-size fields, which no launch reads; see
-    ``repro_torch.kernels``)
+    toggles; the tuning table and the block fields that set the launch
+    layouts of kernels 1, 3 and 4; see ``repro_torch.kernels``)
   * :class:`ServeConfig`     — online inference tier (layer-wise inference
     node block, micro-batch flush policy, serve cache budget, degradation
     policy — deadlines, flush retries, circuit breaker; see ``repro.serve``
@@ -274,14 +274,16 @@ class KernelConfig:
     ``attn_parts`` factoring runs the projections in torch ops and the
     masked softmax + combine through ``stacked_softmax_combine``.
     ``relation_agg`` routes the dict-form ``raf`` executor's R-GCN
-    aggregation through its kernel.  ``block_n`` / ``block_out`` /
-    ``block_in`` are the reference's fields, validated and kept so that
-    configurations round-trip between the packages, but no CUDA launch
-    reads them: every kernel of the port has a fixed tile (kernels 1 and 5
-    pick their rows per block from the shape, kernel 4 from the fanout).
-    There is no tuning table,
-    so ``autotune=True`` raises
-    (``repro_torch.kernels.ops.refuse_autotune``).
+    aggregation through its kernel.  ``autotune`` and ``block_n`` /
+    ``block_out`` / ``block_in`` set the layout of each CUDA launch of
+    kernels 1, 3 and 4 in the reference's order
+    (``repro_torch.kernels.ops.resolve_blocks``): the fields where set, then
+    the committed tuning table (measured on an H100) when ``autotune`` is
+    on, then each kernel's shape rule.  Kernels 1 and 4 take ``block_n`` 16
+    or 64 (the rows of their tile) and only ``block_out`` 64 and
+    ``block_in`` 32; kernel 3 takes ``block_n`` rows per block,
+    ``block_in`` neighbours a chunk of logits and only ``block_out`` 1024.
+    A value a launch cannot take raises on CUDA; CPU tensors read none.
     """
 
     enabled: bool = True
@@ -290,10 +292,10 @@ class KernelConfig:
     gather: bool = True
     interpret: Optional[bool] = None  # None = auto per backend
     fuse_epilogue: bool = True
-    autotune: bool = False  # the reference's tuning table; True raises here
-    block_n: Optional[int] = None  # the reference's node block; no launch reads it
-    block_out: Optional[int] = None  # the reference's d_out block; no launch reads it
-    block_in: Optional[int] = None  # the reference's d_in chunk; no launch reads it
+    autotune: bool = False  # layouts from kernels/tuning_table.json
+    block_n: Optional[int] = None  # rows of a tile (1, 4) or of a block (3)
+    block_out: Optional[int] = None  # columns of a block; fixed in every kernel
+    block_in: Optional[int] = None  # chunk depth: d_in (1, 4; fixed) or f (3)
 
     def __post_init__(self):
         for f in ("enabled", "stacked_agg", "relation_agg", "gather",

@@ -18,7 +18,8 @@
 //     of the 132 SMs a block (the leaves, 24,576 rows: 384 blocks, three an
 //     SM), else 1 (the tops and serving blocks, 2,048-3,072 rows: 128-192
 //     blocks of 16 rows instead of 16-24 of 128), chosen from the shape in
-//     the C entry point.  At the leaves 128-row tiles (8 x 8 a thread) left
+//     the C entry point unless the caller passes RM (the tuning table's
+//     launch parameter; layout_rm).  At the leaves 128-row tiles (8 x 8 a thread) left
 //     too few warps an SM to hide latency: 0.022 against 0.019 ms at f = 1,
 //     0.047 against 0.037 at f = 3.  No split of K across blocks: a
 //     cross-block sum would need atomics or a second pass;
@@ -291,18 +292,29 @@ int launch_rm(int rm, const float* h, const uint8_t* mask, const float* w, const
 }
 
 
-// The checked launch of rb slots (ONE: rb = 1 and no slot_u); returns
-// cudaGetLastError() (0 = launched).  RM is picked from the shape.
+// The rows per thread a launch of rb slots takes: `rm` when it is 1 or 4
+// (tiles of 16 or 64 rows; both launch at every shape), the shape's rule
+// (rows_per_thread) when it is 0, and 0 (refused) for any other value.
+inline int layout_rm(long long rb, long long n, long long d_out, int rm) {
+  if (rm == 1 || rm == 4) return rm;
+  if (rm != 0) return 0;
+  return rows_per_thread(rb, n, (d_out + kBN - 1) / kBN, 4);
+}
+
+// The checked launch of rb slots (ONE: rb = 1 and no slot_u) at `rm` rows
+// per thread (0: the shape's rule; see layout_rm); returns
+// cudaGetLastError() (0 = launched).
 template <bool ONE>
 int forward(const float* h, const uint8_t* mask, const float* w, const float* b,
             const int* slot_u, float* out, long long rb, long long n, long long f,
-            long long d_in, long long d_out, cudaStream_t stream) {
+            long long d_in, long long d_out, int rm, cudaStream_t stream) {
   const long long col_tiles = (d_out + kBN - 1) / kBN;
   if (rb < 1 || rb > 65535 || n < 1 || d_out < 1 || d_in < 0 || f < 0 ||
       d_in > 0x7fffffffLL || d_out > 0x7fffffffLL || f > 0x7fffffffLL || col_tiles > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const int rm = rows_per_thread(rb, n, col_tiles, 4);
+  rm = layout_rm(rb, n, d_out, rm);
+  if (rm == 0) return (int)cudaErrorInvalidValue;
   return f == 1 ? launch_rm<true, ONE>(rm, h, mask, w, b, slot_u, out, rb, n, f, d_in, d_out,
                                        col_tiles, stream)
                 : launch_rm<false, ONE>(rm, h, mask, w, b, slot_u, out, rb, n, f, d_in, d_out,

@@ -52,6 +52,6 @@
 extern "C" int relation_agg_fwd(const float* h, const uint8_t* mask, const float* w,
                                 const float* b, float* out, long long n, long long f,
                                 long long d_in, long long d_out, void* stream) {
-  return mean_linear::forward<true>(h, mask, w, b, nullptr, out, 1, n, f, d_in, d_out,
+  return mean_linear::forward<true>(h, mask, w, b, nullptr, out, 1, n, f, d_in, d_out, 0,
                                     (cudaStream_t)stream);
 }

@@ -82,18 +82,19 @@
 //     its materialized [rb, n, H] queries;
 //   * ragged n, f, d_in and H are masked inside the kernel (the copies
 //     zero-fill what lies outside): no padded copies of any operand.
-// The tile is fixed here: RM = 4 (64 pairs a pass).  Where that layout's
+// Two layouts: the tile, RM = 4 (64 pairs a pass), and, where that layout's
 // shared memory does not fit (a row of f > 64 neighbours beside resident
-// 128-deep weight slices at large f or H), the launch takes the lean layout:
-// one row a block, 16-pair passes, one 32-deep weight chunk at a time.
+// 128-deep weight slices at large f or H), the lean layout: one row a
+// block, 16-pair passes, one 32-deep weight chunk at a time.  The entry
+// point takes the tile wherever it fits unless the caller names a layout
+// (the tuning table's launch parameter rm; choose).
 // Limit (the first version's arithmetic, kept so that the fanouts it took
 // stay the ones it takes): 4 * (f * (H * (1 + two) + nh) + H * (1 + post) +
 // 64 * 33 + 32 * 64 * (1 + two)) bytes within 227 KB: f <= 392 for HGT and
 // f <= 792 for R-GAT at H = 64, nh = 4.  The lean layout needs less there
 // (and is refused with the limit where it would not, at H near 1000).  The
 // wrapper raises a named error beyond the limit (attn_max_fanout in
-// stacked_relation_agg/ops.py); the entry point refuses it too, and picks
-// the layout and its rows per block alone.
+// stacked_relation_agg/ops.py); the entry point refuses it too.
 // Precision: full fp32 FMAs; each projection output summed over d_in in
 // increasing order inside one thread (the first version's order, so z0 and
 // v0 equal its outputs bit for bit), every sum of the epilogue in the first
@@ -154,8 +155,14 @@ inline bool fanout_fits(long long f, int H, int nh, int k, bool post) {
   return 4 * floats <= (double)kMaxSmem;
 }
 
-Layout choose(long long f, long long d_in, int nh, int dh, bool two, bool post) {
+// The layout of a launch at `rm` rows per thread: 4 the 64-pair tile, 1
+// the lean layout, 0 the shape's rule (the tile where its shared memory
+// fits, else the lean layout); rm = 0 in the result: refused (a row of
+// this fanout does not fit, the tile's shared memory does not fit, or rm
+// is none of 0, 1 and 4).
+Layout choose(long long f, long long d_in, int nh, int dh, bool two, bool post, int rm) {
   Layout L;
+  if (rm != 0 && rm != 1 && rm != kRM) return L;
   const int H = nh * dh, k = two ? 2 : 1;
   // the lean layout: one row a block, 16-pair passes, one 32-deep weight
   // chunk at a time; within the limit wherever H + nh + f / 4 stay under
@@ -171,7 +178,8 @@ Layout choose(long long f, long long d_in, int nh, int dh, bool two, bool post) 
   const bool one = rows * f <= 16 * kRM && H <= kBN && d_in <= kw;
   const size_t st = stage_floats(kRM, kw, k), ep = epi_floats(rows, f, H, H + 1, nh, k, post);
   const size_t smem = sizeof(float) * (main_floats(st, ep, one) + in_floats(rows, f, H, nh));
-  if (smem <= kMaxSmem) {
+  if (rm == kRM || (rm == 0 && smem <= kMaxSmem)) {
+    if (smem > kMaxSmem) return L;
     L.rm = kRM, L.kw = kw, L.rows = rows, L.zp = H + 1, L.alias = one, L.smem = smem;
   } else {
     L.rm = 1, L.kw = kKC, L.rows = 1, L.zp = H, L.alias = false, L.smem = lean;
@@ -497,16 +505,28 @@ int launch(const Layout& L, dim3 grid, cudaStream_t stream, const float* h,
 
 }  // namespace
 
-// Destination rows per block of a launch at this fanout, d_in and head
-// shape (the layout the entry point takes), or 0 when a row does not fit;
-// the tests read the layout here.
+// Destination rows per block of a launch at this fanout, d_in, head shape
+// and rm (0: the shape's rule; see choose), or 0 when it is refused; the
+// tests read the layout here.
 extern "C" long long stacked_attn_epilogue_rows(long long f, long long d_in, int nh, int dh,
-                                                int two, int post) {
+                                                int two, int post, int rm) {
   if (d_in < 1 || nh < 1 || dh < 1) return 0;
-  return choose(f, d_in, nh, dh, two != 0, post != 0).rows;
+  return choose(f, d_in, nh, dh, two != 0, post != 0, rm).rows;
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).  wv null
+// The rows per thread (4: the 64-pair tile, 1: the lean layout) of a launch
+// at this shape and rm, or 0 when it is refused: what the wrapper records
+// beside each launch's shape.
+extern "C" int stacked_attn_epilogue_rm(long long f, long long d_in, int nh, int dh, int two,
+                                        int post, int rm) {
+  if (d_in < 1 || nh < 1 || dh < 1) return 0;
+  return choose(f, d_in, nh, dh, two != 0, post != 0, rm).rm;
+}
+
+// Launches on `stream` in the layout of `rm` (0: the shape's rule; 4 or 1:
+// the tile or the lean layout, the launch parameter the tuning table sets);
+// returns cudaGetLastError() (0 = launched; cudaErrorInvalidValue for a
+// layout this shape cannot take).  wv null
 // shares z0 as the values (R-GAT); pe and pv are both null or both given;
 // eb, z0 and v0 may be null (v0 is written only with wv).  The caller
 // guarantees shapes, contiguity of every operand but qv (read through
@@ -516,14 +536,14 @@ extern "C" int stacked_attn_epilogue(
     long long qv_ns, const float* eb, const float* we, const float* wv,
     const float* pe, const float* pv, const int* us, float* out, float* z0, float* v0,
     long long rb, long long n, long long f, long long d_in, int nh, int dh,
-    float scale, float slope, int has_slope, void* stream) {
+    float scale, float slope, int has_slope, int rm, void* stream) {
   const bool two = wv != nullptr, post = pe != nullptr;
   if (rb < 1 || rb > 65535 || n < 1 || f < 1 || d_in < 1 || d_in > 0x7fffffffLL || nh < 1 ||
       dh < 1 || (long long)nh * dh > 0x7fffffffLL / 4 || (pe == nullptr) != (pv == nullptr) ||
       (two && z0 != nullptr && v0 == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Layout L = choose(f, d_in, nh, dh, two, post);
+  const Layout L = choose(f, d_in, nh, dh, two, post, rm);
   if (L.rm == 0 || (n + L.rows - 1) / L.rows > 2147483647LL) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((n + L.rows - 1) / L.rows), (unsigned)rb);
   cudaStream_t st = (cudaStream_t)stream;

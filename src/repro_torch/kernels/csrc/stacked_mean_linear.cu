@@ -23,12 +23,21 @@
 
 #include "mean_linear.cuh"
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).  The
-// caller guarantees shapes, contiguity and 0 <= slot_u[s] < U.
+// Launches on `stream` at `rm` rows per thread (0: the shape's rule; 1 or
+// 4: tiles of 16 or 64 rows, the launch parameter the tuning table sets);
+// returns cudaGetLastError() (0 = launched; cudaErrorInvalidValue for any
+// other rm).  The caller guarantees shapes, contiguity and
+// 0 <= slot_u[s] < U.
 extern "C" int stacked_mean_linear_fwd(
     const float* h, const uint8_t* mask, const float* w, const float* b,
     const int* slot_u, float* out, long long rb, long long n, long long f,
-    long long d_in, long long d_out, void* stream) {
-  return mean_linear::forward<false>(h, mask, w, b, slot_u, out, rb, n, f, d_in, d_out,
+    long long d_in, long long d_out, int rm, void* stream) {
+  return mean_linear::forward<false>(h, mask, w, b, slot_u, out, rb, n, f, d_in, d_out, rm,
                                      (cudaStream_t)stream);
+}
+
+// The rows per thread stacked_mean_linear_fwd takes for this shape and rm
+// (0 = refused): what the wrapper records beside each launch's shape.
+extern "C" int stacked_mean_linear_rm(long long rb, long long n, long long d_out, int rm) {
+  return mean_linear::layout_rm(rb, n, d_out, rm);
 }

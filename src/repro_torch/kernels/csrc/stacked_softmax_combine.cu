@@ -30,8 +30,9 @@
 //
 // Design:
 //   * a block of 256 threads takes R = 256 / ceil(H / 4) rows of one slot
-//     (16 at H = 64; the C entry point picks R from H); a thread owns one
-//     16-byte chunk (4 columns) of a row;
+//     (16 at H = 64; the C entry point picks R from H unless the caller
+//     names fewer: the tuning table's launch parameter, choose); a thread
+//     owns one 16-byte chunk (4 columns) of a row (threads past R rows idle);
 //   * first the block's logits go out by cp.async (4-byte copies through
 //     e's strides, one group), then each thread's loads of v for its first
 //     KJ neighbours (KJ = 4 at f <= 4, else 16) into registers, then the
@@ -301,9 +302,55 @@ size_t smem_bytes(long long R, long long nh, long long fcd) {
   return sizeof(float) * (size_t)(R * (fcd + 1) * nh + 2 * R * nh) + (size_t)(R * fcd);
 }
 
+constexpr size_t kMaxSmem = 232448;  // opt-in shared memory of one block on sm_90
+
+// The layout of a launch: R rows per block and the chunk depth fcd.  The
+// rule (R = 0, fcd = 0): the most rows 256 threads hold, 256 / ceil(H / 4),
+// and kF neighbours a chunk, fewer when that would not fit in the default
+// 48 KB (many heads a row); past 48 KB only at depth 1.  A caller (the
+// tuning table) may name R in 1 .. that most and fcd in 1 .. kF; R = 0 in
+// the result: refused (outside those ranges, or past 227 KB).
+struct Layout {
+  long long R = 0, fcd = 0;
+  size_t smem = 0;
+};
+
+Layout choose(long long nh, long long dh, long long R, long long fcd) {
+  Layout L;
+  const long long C = (nh * dh + 3) / 4;
+  const long long rmax = C >= kThreads ? 1 : kThreads / C;
+  if (R < 0 || R > rmax || fcd < 0 || fcd > kF) return L;
+  if (R == 0) R = rmax;
+  if (fcd == 0) {
+    fcd = kF;
+    while (fcd > 1 && smem_bytes(R, nh, fcd) > 48 * 1024) fcd /= 2;
+  }
+  const size_t smem = smem_bytes(R, nh, fcd);
+  if (smem > kMaxSmem) return L;
+  L.R = R, L.fcd = fcd, L.smem = smem;
+  return L;
+}
+
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).  e and v
+// The rows per block and the chunk depth stacked_softmax_combine_fwd takes
+// for this head shape, R and fcd (0 = refused): what the wrapper records
+// beside each launch's shape.
+extern "C" long long stacked_softmax_combine_rows(long long nh, long long dh, long long R,
+                                                  long long fcd) {
+  if (nh < 1 || dh < 1 || nh * dh > 0x7fffffff - 3) return 0;
+  return choose(nh, dh, R, fcd).R;
+}
+extern "C" long long stacked_softmax_combine_depth(long long nh, long long dh, long long R,
+                                                   long long fcd) {
+  if (nh < 1 || dh < 1 || nh * dh > 0x7fffffff - 3) return 0;
+  return choose(nh, dh, R, fcd).fcd;
+}
+
+// Launches on `stream` with R rows per block and chunk depth fcd (0 each:
+// the rule; see choose; the launch parameters the tuning table sets);
+// returns cudaGetLastError() (0 = launched; cudaErrorInvalidValue for a
+// layout choose refuses).  e and v
 // are read through their element strides (es_*, vs_*: slot, row, neighbour,
 // head; v's last dimension has stride 1); mask [rb, n, f] and out [rb, n,
 // nh * dh] are contiguous.  The caller guarantees shapes and fp32.
@@ -311,21 +358,19 @@ extern "C" int stacked_softmax_combine_fwd(
     const float* e, const uint8_t* mask, const float* v, float* out, long long rb,
     long long n, long long f, long long nh, long long dh, long long es_s, long long es_n,
     long long es_f, long long es_h, long long vs_s, long long vs_n, long long vs_f,
-    long long vs_h, void* stream) {
+    long long vs_h, long long rows, long long depth, void* stream) {
   if (rb < 1 || rb > 65535 || n < 1 || f < 0 || nh < 1 || dh < 1 || f > 0x7fffffff ||
       nh * dh > 0x7fffffff - 3) {
     return (int)cudaErrorInvalidValue;
   }
   const long long C = (nh * dh + 3) / 4;
-  const long long R = C >= kThreads ? 1 : kThreads / C;
+  const Layout L = choose(nh, dh, rows, depth);
+  const long long R = L.R, fcd = L.fcd;
   const long long col_tiles = (C + kThreads - 1) / kThreads;
-  if (col_tiles > 65535 || (n + R - 1) / R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // the chunk depth: kF neighbours, fewer when that would not fit in the
-  // default 48 KB (many heads a row); past 48 KB only at depth 1
-  long long fcd = kF;
-  while (fcd > 1 && smem_bytes(R, nh, fcd) > 48 * 1024) fcd /= 2;
-  const size_t smem = smem_bytes(R, nh, fcd);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (R == 0 || col_tiles > 65535 || (n + R - 1) / R > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = L.smem;
   // a dimension of one element reads at index 0 only: its stride may be
   // anything, and must not turn the 16-byte loads off
   const Strides es{rb > 1 ? es_s : 0, n > 1 ? es_n : 0, f > 1 ? es_f : 0, nh > 1 ? es_h : 0};

@@ -2,7 +2,7 @@
 
 ``gather_rows`` launches the hand-written CUDA kernel
 (``csrc/gather_rows.cu``) for a CUDA table and runs :func:`gather_rows_ref`
-for a CPU one; :func:`gather_rows_cfg` adds the ``kernels.gather`` toggle.
+for a CPU one (``ref.py``); :func:`gather_rows_cfg` adds the ``kernels.gather`` toggle.
 The production caller is ``repro_torch.embed.cache.FeatureCache.fetch``
 on all-hit fetches.  Indices come from the host (the cache keeps its slot
 map in numpy): they are range-checked there before they are copied to the
@@ -32,6 +32,7 @@ from repro_torch.kernels.ops import (
     on_device,
     register_kernel,
 )
+from repro_torch.kernels.gather_rows.ref import gather_rows_ref
 
 __all__ = ["gather_rows", "gather_rows_cfg", "gather_rows_ref", "launch_kernel", "INFO"]
 
@@ -41,11 +42,6 @@ INFO = register_kernel(
     replaces="src/repro/kernels/gather_rows/kernel.py:33",
 )
 _FN = None
-
-
-def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: ``table[idx]``."""
-    return table[idx.to(device=table.device, dtype=torch.long)]
 
 
 def _host_index(idx, rows: int) -> np.ndarray:

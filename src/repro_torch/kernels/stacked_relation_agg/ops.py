@@ -60,14 +60,35 @@ reference's closed-form softmax Jacobian in torch ops from the recomputed
 probabilities.  The JAX package has no backward kernel for it.  The kernel
 reads ``e`` and ``v`` through their strides, as ``attn_parts``' einsums
 return them (HGT's values as a head-major view), so no copy runs in front
-of it, and picks its rows per block from the head width itself:
-:func:`launch_softmax_combine` takes the operands and nothing else.
+of it.
+
+Launch layouts (kernels 1, 3 and 4): :func:`stacked_agg` resolves each
+CUDA launch's ``(block_n, block_out, block_in)`` with
+:func:`~repro_torch.kernels.ops.resolve_blocks` (explicit fields, then the
+tuning table when ``autotune`` is on, then ``None``: the C entry point's
+shape rule), under the reference's key for that op and shape class (the
+q side's kernel 1 launch under its own, f = 1).  The wrappers map it to the
+entry point's launch parameter and raise :class:`ValueError`, naming what
+the shape takes, on anything else; nothing is clamped:
+
+  * kernels 1 and 4: ``block_n`` 16 or 64, the rows of their fp32 tile
+    (RM = 1 or 4; kernel 4's 16-row tile is its lean layout, one row a
+    block); ``block_out`` 64 and ``block_in`` 32 are fixed;
+  * kernel 3: ``block_n`` rows per block (up to 256 / ceil(H / 4)) and
+    ``block_in`` neighbours a chunk of logits (up to 16); ``block_out``
+    1024, the columns of a block, is fixed.
+
+Every layout computes the same function in the same order (only which
+thread computes a row changes).  ``KERNELS`` records beside each launch's
+shape the layout it took, as the entry point's layout query answers.  CPU
+tensors run the plain versions and read no ``block_*`` and no table.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -79,8 +100,8 @@ from repro_torch.kernels.ops import (
     cuda_stream,
     kernel_choice,
     on_device,
-    refuse_autotune,
     register_kernel,
+    resolve_blocks,
 )
 from repro_torch.kernels.stacked_relation_agg.ref import stacked_agg_ref
 
@@ -109,6 +130,9 @@ __all__ = [
     "launch_attn_epilogue",
     "launch_attn_dh",
     "launch_softmax_combine",
+    "mean_linear_layout",
+    "attn_layout",
+    "softmax_combine_layout",
     "FanoutTooWideError",
     "INFO",
     "INFO_DH",
@@ -147,11 +171,108 @@ _DH_FN = None
 _SC_FN = None
 _AE_FN = None
 _ADH_FN = None
-# must match csrc/fp32_tile.cuh: the columns of a block of kernels 1, 2, 5
+# must match csrc/fp32_tile.cuh: the columns of a block of kernels 1, 2, 5,
+# and the depth of a streamed chunk of A (kernels 1 and 4)
 _TILE_COLS = 64
+_TILE_DEPTH = 32
 # must match csrc/stacked_attn_epilogue.cu: the opt-in shared memory of one
 # block on sm_90, which its fanout limit is stated against
 _SMEM_LIMIT = 232448
+# must match csrc/stacked_softmax_combine.cu: the threads of a block (each
+# 4 columns of a row) and kF, the deepest chunk of logits
+_SC_THREADS = 256
+_SC_DEPTH = 16
+_QUERIES: Dict[str, object] = {}
+
+
+def _query(lib: str, name: str, argtypes, restype):
+    """A layout query exported by ``csrc/<lib>.cu`` (host code only)."""
+    fn = _QUERIES.get(name)
+    if fn is None:
+        from repro_torch.kernels.build import load
+
+        fn = getattr(load(lib), name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _QUERIES[name] = fn
+    return fn
+
+
+@functools.lru_cache(maxsize=4096)
+def mean_linear_layout(rb: int, n: int, d_out: int, rm: int) -> int:
+    """The rows per thread (1 or 4) ``csrc/stacked_mean_linear.cu`` launches
+    at this shape and ``rm`` (0: its shape rule), or 0 when it refuses
+    ``rm``: the entry point's own answer."""
+    return _query("stacked_mean_linear", "stacked_mean_linear_rm",
+                  [ctypes.c_longlong] * 3 + [ctypes.c_int], ctypes.c_int)(rb, n, d_out, rm)
+
+
+@functools.lru_cache(maxsize=4096)
+def attn_layout(f: int, d_in: int, nh: int, dh: int, two: bool, post: bool,
+                rm: int) -> Tuple[int, int]:
+    """``(rows per thread, destination rows per block)`` of a
+    ``csrc/stacked_attn_epilogue.cu`` launch at this shape and ``rm`` (0:
+    its shape rule; 4 the 64-pair tile, 1 the lean layout), or ``(0, 0)``
+    when the entry point refuses it."""
+    args = (f, d_in, nh, dh, int(two), int(post), rm)
+    types = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+    return (_query("stacked_attn_epilogue", "stacked_attn_epilogue_rm", types,
+                   ctypes.c_int)(*args),
+            _query("stacked_attn_epilogue", "stacked_attn_epilogue_rows", types,
+                   ctypes.c_longlong)(*args))
+
+
+@functools.lru_cache(maxsize=4096)
+def softmax_combine_layout(nh: int, dh: int, rows: int, depth: int) -> Tuple[int, int]:
+    """``(rows per block, chunk depth)`` of a
+    ``csrc/stacked_softmax_combine.cu`` launch at this head shape (0 each:
+    its rule), or ``(0, 0)`` when the entry point refuses them."""
+    types = [ctypes.c_longlong] * 4
+    return (_query("stacked_softmax_combine", "stacked_softmax_combine_rows", types,
+                   ctypes.c_longlong)(nh, dh, rows, depth),
+            _query("stacked_softmax_combine", "stacked_softmax_combine_depth", types,
+                   ctypes.c_longlong)(nh, dh, rows, depth))
+
+
+def _fixed_tile(op: str, block_out, block_in, cols: int, depth: Optional[int]) -> None:
+    if block_out is not None and block_out != cols:
+        raise ValueError(f"{op}: block_out={block_out} cannot launch; the kernel's column "
+                         f"tile is fixed at {cols}")
+    if depth is not None and block_in is not None and block_in != depth:
+        raise ValueError(f"{op}: block_in={block_in} cannot launch; the kernel's chunk "
+                         f"depth is fixed at {depth}")
+
+
+def _tile_rm(op: str, blocks, takes=(16, 64)) -> int:
+    """Rows per thread of a kernel 1 or 4 launch from ``blocks`` (0: the
+    rule); ``takes``: the ``block_n`` values the shape can launch."""
+    block_n, block_out, block_in = blocks
+    _fixed_tile(op, block_out, block_in, _TILE_COLS, _TILE_DEPTH)
+    if block_n is None:
+        return 0
+    if block_n not in takes:
+        raise ValueError(f"{op}: block_n={block_n} cannot launch at this shape; it takes "
+                         f"block_n {' or '.join(map(str, takes)) or 'none'} (the rows of "
+                         f"its tile)")
+    return block_n // 16
+
+
+def _sc_params(nh: int, dh: int, blocks) -> Tuple[int, int]:
+    """Rows per block and chunk depth of a kernel 3 launch from ``blocks``
+    (0 each: the rule)."""
+    op = "stacked_softmax_combine"
+    block_n, block_out, block_in = blocks
+    _fixed_tile(op, block_out, None, 4 * _SC_THREADS, None)
+    rows, depth = block_n or 0, block_in or 0
+    named = [x for x in (block_n, block_in) if x is not None]
+    if named and (min(named) < 1 or softmax_combine_layout(nh, dh, rows, depth)[0] == 0):
+        chunks = -(-nh * dh // 4)
+        most = 1 if chunks >= _SC_THREADS else _SC_THREADS // chunks
+        raise ValueError(
+            f"{op}: block_n={block_n}, block_in={block_in} cannot launch at {nh} heads x "
+            f"{dh}; it takes block_n (rows per block) 1 to {most} and block_in (neighbours "
+            f"a chunk of logits) 1 to {_SC_DEPTH}, within {_SMEM_LIMIT} bytes of shared "
+            f"memory")
+    return rows, depth
 
 
 def _host_slots(slot_u, num_rows: int) -> np.ndarray:
@@ -263,7 +384,8 @@ def _kernel():
         from repro_torch.kernels.build import load
 
         fn = load("stacked_mean_linear").stacked_mean_linear_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -299,8 +421,9 @@ def _cuda_operands(op: str, device, named, float_names, mask):
     return mask
 
 
-def _mean_linear_forward(h, mask, w, b, slots) -> torch.Tensor:
-    """The forward on checked shapes: the kernel for CUDA, plain for CPU."""
+def _mean_linear_forward(h, mask, w, b, slots, blocks=(None, None, None)) -> torch.Tensor:
+    """The forward on checked shapes: the kernel for CUDA, in the layout of
+    ``blocks`` (module docstring), plain for CPU."""
     if h.device.type == "cpu":
         return stacked_mean_linear_ref(h, mask, w, b, slots)
     if h.device.type != "cuda":
@@ -313,24 +436,28 @@ def _mean_linear_forward(h, mask, w, b, slots) -> torch.Tensor:
     if rb > 65535 or -(-d_out // _TILE_COLS) > 65535:
         raise ValueError(f"stacked_mean_linear: grid of {rb} slots x "
                          f"{-(-d_out // _TILE_COLS)} column tiles exceeds 65535")
+    rm = _tile_rm("stacked_mean_linear", blocks)
     out = torch.empty((rb, n, d_out), dtype=torch.float32, device=h.device)
     if rb == 0 or n == 0 or d_out == 0:
         return out
-    launch_kernel(h, mask_u8, w, b, slots, out)
-    INFO.record((rb, n, f, d_in, d_out, w.shape[0]))
+    launch_kernel(h, mask_u8, w, b, slots, out, rm)
+    INFO.record((rb, n, f, d_in, d_out, w.shape[0]),
+                (16 * mean_linear_layout(rb, n, d_out, rm), _TILE_COLS, _TILE_DEPTH))
     return out
 
 
-def launch_kernel(h, mask_u8, w, b, slot_u_dev, out) -> None:
+def launch_kernel(h, mask_u8, w, b, slot_u_dev, out, rm: int = 0) -> None:
     """One raw forward launch on operands already checked and staged on
-    ``h``'s device (``slot_u_dev`` int32, ``out`` allocated).  Not counted:
+    ``h``'s device (``slot_u_dev`` int32, ``out`` allocated), at ``rm`` rows
+    per thread (0: the entry point's shape rule; 1 or 4; anything else raises
+    :class:`~repro_torch.kernels.ops.KernelLaunchError`).  Not counted:
     production calls go through the wrapper; this entry exists so kernel
     time can be measured without the staging."""
     rb, n, f, d_in = h.shape
     with on_device(h.device):
         status = _kernel()(h.data_ptr(), mask_u8.data_ptr(), w.data_ptr(), b.data_ptr(),
                            slot_u_dev.data_ptr(), out.data_ptr(), rb, n, f, d_in,
-                           w.shape[2], cuda_stream(h.device))
+                           w.shape[2], rm, cuda_stream(h.device))
     check_launch(status, "stacked_mean_linear")
 
 
@@ -393,9 +520,9 @@ class _StackedMeanLinear(torch.autograd.Function):
     """Forward kernel + stack-form backward (see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, h, mask, w, b, slots):
+    def forward(ctx, h, mask, w, b, slots, blocks):
         ctx.save_for_backward(h, mask, w, slots)
-        return _mean_linear_forward(h, mask, w, b, slots)
+        return _mean_linear_forward(h, mask, w, b, slots, blocks)
 
     @staticmethod
     def backward(ctx, g):
@@ -406,7 +533,7 @@ class _StackedMeanLinear(torch.autograd.Function):
             dh = stacked_mean_linear_dh(g, mask, w, slots)
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
             dw, db = _stack_form_grads(h, mask, g, slots, w.shape[0])
-        return dh, None, dw, db, None
+        return dh, None, dw, db, None, None
 
 
 def stacked_mean_linear(
@@ -415,6 +542,10 @@ def stacked_mean_linear(
     w: torch.Tensor,  # [U, d_in, d_out] float32
     b: torch.Tensor,  # [U, d_out] float32
     slot_u,  # [rb] host integer array in [0, U), or stage_slot_u's tensor
+    *,
+    block_n: Optional[int] = None,
+    block_out: Optional[int] = None,
+    block_in: Optional[int] = None,
 ) -> torch.Tensor:
     """``out[s] = masked_mean(h[s], mask[s]) @ w[slot_u[s]] + b[slot_u[s]]``,
     differentiable in ``h``, ``w`` and ``b`` (:class:`_StackedMeanLinear`).
@@ -422,8 +553,9 @@ def stacked_mean_linear(
     CUDA tensors launch the kernels (raising on what they do not take); CPU
     tensors run the plain versions.  ``slot_u`` is a host array, checked and
     copied to the device on each call, or an int32 tensor on ``h``'s device
-    from :func:`stage_slot_u`, checked when it was staged.  Both kernels
-    have fixed tiles: there are no block sizes to pass."""
+    from :func:`stage_slot_u`, checked when it was staged.  ``block_*``
+    choose the forward kernel's layout on CUDA (``block_n`` 16 or 64; the
+    module docstring); the backward kernel's tile is fixed."""
     if h.dim() != 4 or mask.shape != h.shape[:3] or w.dim() != 3 or b.dim() != 2:
         raise ValueError(
             f"stacked_mean_linear shapes: h {tuple(h.shape)}, mask "
@@ -434,7 +566,7 @@ def stacked_mean_linear(
         raise ValueError(f"stacked_mean_linear: w {tuple(w.shape)} / b "
                          f"{tuple(b.shape)} do not match d_in={d_in}")
     slots = _slots_for(slot_u, U, rb, h.device, "stacked_mean_linear")
-    return _StackedMeanLinear.apply(h, mask, w, b, slots)
+    return _StackedMeanLinear.apply(h, mask, w, b, slots, (block_n, block_out, block_in))
 
 
 # --------------------------------------------------------------------------
@@ -549,7 +681,7 @@ def _ae_kernel():
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
                        + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4
                        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _AE_FN = fn
     return _AE_FN
@@ -572,10 +704,13 @@ def _ptr(t) -> Optional[int]:
 
 
 def launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0, v0,
-                         num_heads, head_dim, scale, slope) -> None:
+                         num_heads, head_dim, scale, slope, rm: int = 0) -> None:
     """One raw epilogue launch on operands already checked and on ``h``'s
-    device (outputs allocated; ``z0``/``v0`` None without residuals).  Not
-    counted: production calls go through :func:`attn_epilogue_forward`."""
+    device (outputs allocated; ``z0``/``v0`` None without residuals), in the
+    layout of ``rm`` (0: the entry point's shape rule; 4 the 64-pair tile, 1
+    the lean layout; one the shape cannot take raises
+    :class:`~repro_torch.kernels.ops.KernelLaunchError`).  Not counted:
+    production calls go through :func:`attn_epilogue_forward`."""
     rb, n, f, d_in = h.shape
     with on_device(h.device):
         status = _ae_kernel()(
@@ -583,7 +718,7 @@ def launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0, v0,
             _ptr(eb), we.data_ptr(), _ptr(wv), _ptr(pe), _ptr(pv), us.data_ptr(),
             out.data_ptr(), _ptr(z0), _ptr(v0), rb, n, f, d_in, num_heads, head_dim,
             float(scale), 0.0 if slope is None else float(slope), int(slope is not None),
-            cuda_stream(h.device))
+            rm, cuda_stream(h.device))
     check_launch(status, "stacked_attn_epilogue")
 
 
@@ -607,12 +742,14 @@ def _check_us(op: str, us, rb: int, device) -> None:
 
 def attn_epilogue_forward(h, mask, qv, eb, we, wv, pe, pv, us, *, num_heads: int,
                           head_dim: int, scale: float = 1.0, slope=None,
-                          with_residuals: bool = False):
+                          with_residuals: bool = False, block_n: Optional[int] = None,
+                          block_out: Optional[int] = None, block_in: Optional[int] = None):
     """The fused attention AGG_r on stacked operands (see
     :func:`stacked_attn_epilogue_ref` for the function and the return).
 
     CUDA tensors launch ``csrc/stacked_attn_epilogue.cu`` (raising on what it
-    does not take); CPU tensors run the plain version.  ``us`` comes from
+    does not take) in the layout ``block_*`` name (``block_n`` 16 or 64; the
+    module docstring); CPU tensors run the plain version.  ``us`` comes from
     :func:`attn_slots`.  ``qv`` may have any slot and node strides (0 for a
     per-slot vector) with unit stride along H."""
     op = "stacked_attn_epilogue"
@@ -659,17 +796,23 @@ def attn_epilogue_forward(h, mask, qv, eb, we, wv, pe, pv, us, *, num_heads: int
         return (out, z0, v0) if with_residuals else out
     if f == 0 or d_in == 0:
         raise ValueError(f"{op}: f = {f} and d_in = {d_in} must be positive")
-    limit = attn_max_fanout(nh, dh, wv is not None, post)
+    two = wv is not None
+    limit = attn_max_fanout(nh, dh, two, post)
     if f > limit:
         raise FanoutTooWideError(
             f"{op}: a row of fanout {f} at {nh} heads x {dh} does not fit the shared "
             f"memory of one block; the kernel takes f <= {limit}")
+    takes = (16, 64) if block_n is None else tuple(
+        16 * rm for rm in (1, 4) if attn_layout(f, d_in, nh, dh, two, post, rm)[0])
+    rm = _tile_rm(op, (block_n, block_out, block_in), takes)
     launch_attn_epilogue(h, mask_u8, qv, eb, we, wv, pe, pv, us, out, z0,
-                         None if wv is None else v0, nh, dh, scale, slope)
+                         None if wv is None else v0, nh, dh, scale, slope, rm)
     INFO_AE.record((rb, n, f, d_in, nh, dh, we.shape[0],
                     0 if wv is None else wv.shape[0], pe.shape[0] if post else 0,
                     eb is not None, slope is not None, qv.stride(1) == 0,
-                    with_residuals))
+                    with_residuals),
+                   (16 * attn_layout(f, d_in, nh, dh, two, post, rm)[0], _TILE_COLS,
+                    _TILE_DEPTH))
     return (out, z0, v0) if with_residuals else out
 
 
@@ -719,6 +862,7 @@ class _AECfg:
     head_dim: int
     scale: float
     slope: Optional[float]
+    blocks: Tuple[Optional[int], Optional[int], Optional[int]] = (None, None, None)
 
 
 class _StackedAttnEpilogue(torch.autograd.Function):
@@ -729,7 +873,8 @@ class _StackedAttnEpilogue(torch.autograd.Function):
     def forward(ctx, h, mask, qv, eb, we, wv, pe, pv, us, cfg: _AECfg):
         out, z0, v0 = attn_epilogue_forward(
             h, mask, qv, eb, we, wv, pe, pv, us, num_heads=cfg.num_heads,
-            head_dim=cfg.head_dim, scale=cfg.scale, slope=cfg.slope, with_residuals=True)
+            head_dim=cfg.head_dim, scale=cfg.scale, slope=cfg.slope, with_residuals=True,
+            **dict(zip(("block_n", "block_out", "block_in"), cfg.blocks)))
         ctx.save_for_backward(h, mask, qv, eb, we, wv, pe, pv, us, z0, v0)
         ctx.cfg = cfg
         return out
@@ -802,11 +947,14 @@ class _StackedAttnEpilogue(torch.autograd.Function):
         return dh_, None, dqv, deb, dwe, dwv, dpe, dpv, None, None
 
 
-def stacked_attn_epilogue(epi, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def stacked_attn_epilogue(epi, h: torch.Tensor, mask: torch.Tensor, *,
+                          block_n: Optional[int] = None, block_out: Optional[int] = None,
+                          block_in: Optional[int] = None) -> torch.Tensor:
     """Fused attention AGG_r from a module's :class:`~repro_torch.core.relmod.
     AttnEpilogue` operands, differentiable in ``h`` and every operand
     (:class:`_StackedAttnEpilogue`); without a gradient to take it launches
-    the kernel with no residuals."""
+    the kernel with no residuals.  ``block_*``: the kernel's layout on CUDA
+    (:func:`attn_epilogue_forward`)."""
     rb = h.shape[0]
     post = epi.pe is not None
     if post != (epi.pv is not None) or (post and epi.ua is None):
@@ -817,7 +965,8 @@ def stacked_attn_epilogue(epi, h: torch.Tensor, mask: torch.Tensor) -> torch.Ten
                     (epi.we.shape[0], wv_rows, epi.pe.shape[0] if post else 1), rb,
                     h.device)
     cfg = _AECfg(int(epi.num_heads), int(epi.head_dim), float(epi.scale),
-                 None if epi.slope is None else float(epi.slope))
+                 None if epi.slope is None else float(epi.slope),
+                 (block_n, block_out, block_in))
     # the kernel takes contiguous operands (qv through its strides); eb comes
     # out of an einsum, which may return a permuted view
     args = (h.contiguous(), mask, epi.qv, None if epi.eb is None else epi.eb.contiguous(),
@@ -826,20 +975,24 @@ def stacked_attn_epilogue(epi, h: torch.Tensor, mask: torch.Tensor) -> torch.Ten
         out = _StackedAttnEpilogue.apply(*args, us, cfg)
     else:
         out = attn_epilogue_forward(*args, us, num_heads=cfg.num_heads,
-                                    head_dim=cfg.head_dim, scale=cfg.scale, slope=cfg.slope)
+                                    head_dim=cfg.head_dim, scale=cfg.scale, slope=cfg.slope,
+                                    block_n=block_n, block_out=block_out, block_in=block_in)
     return out if epi.bias is None else out + epi.bias[:, None, :]
 
 
-def _epilogue_linear(w_stack, u, x) -> torch.Tensor:
+def _epilogue_linear(w_stack, u, x, opts=None) -> torch.Tensor:
     """Per-slot projection ``x @ w_stack[u]`` for the q side of an attention
     epilogue: :func:`stacked_mean_linear` at fanout 1 (the masked mean over
     one neighbour is the identity), so the weights are read from the stack
-    and the gradient lands in stack form."""
-    rb, n, _ = x.shape
+    and the gradient lands in stack form.  Its layout resolves under kernel
+    1's own shape class (f = 1)."""
+    rb, n, d = x.shape
     zb = torch.zeros((w_stack.shape[0], w_stack.shape[2]), dtype=w_stack.dtype,
                      device=w_stack.device)
     ones = torch.ones((rb, n, 1), dtype=torch.bool, device=x.device)
-    return stacked_mean_linear(x.contiguous()[:, :, None, :], ones, w_stack, zb, u)
+    return stacked_mean_linear(
+        x.contiguous()[:, :, None, :], ones, w_stack, zb, u,
+        **_blocks(opts, "stacked_mean_linear", x.device, n, 1, d, w_stack.shape[2]))
 
 
 def _is_cuda(t: torch.Tensor) -> bool:
@@ -852,31 +1005,36 @@ def _sc_kernel():
         from repro_torch.kernels.build import load
 
         fn = load("stacked_softmax_combine").stacked_softmax_combine_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 15 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _SC_FN = fn
     return _SC_FN
 
 
-def launch_softmax_combine(e, mask_u8, v, out) -> None:
+def launch_softmax_combine(e, mask_u8, v, out, rows: int = 0, depth: int = 0) -> None:
     """One raw launch on operands already checked and on ``e``'s device
     (``v`` ``[rb, n, f, nh, dh]`` with its last dimension contiguous, ``e``
-    of any strides, ``mask_u8`` and ``out`` contiguous).  Rows per block are
-    the kernel's own choice, from the head width.  Not counted: production
-    calls go through :func:`softmax_combine_forward`."""
+    of any strides, ``mask_u8`` and ``out`` contiguous), at ``rows`` rows per
+    block and chunk depth ``depth`` (0 each: the entry point's rule, from the
+    head width; a layout it refuses raises
+    :class:`~repro_torch.kernels.ops.KernelLaunchError`).  Not counted:
+    production calls go through :func:`softmax_combine_forward`."""
     rb, n, f, nh, dh = v.shape
     with on_device(e.device):
         status = _sc_kernel()(e.data_ptr(), mask_u8.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              rb, n, f, nh, dh, *e.stride(), *v.stride()[:4],
+                              rb, n, f, nh, dh, *e.stride(), *v.stride()[:4], rows, depth,
                               cuda_stream(e.device))
     check_launch(status, "stacked_softmax_combine")
 
 
-def softmax_combine_forward(e, mask, v) -> torch.Tensor:
+def softmax_combine_forward(e, mask, v, *, block_n: Optional[int] = None,
+                            block_out: Optional[int] = None,
+                            block_in: Optional[int] = None) -> torch.Tensor:
     """The masked softmax + combine forward: the kernel for CUDA tensors
     (fp32; ``e`` of any strides, ``v`` with its last dimension contiguous,
-    as ``attn_parts``' einsums return them; anything else raises), the plain
-    version for CPU ones."""
+    as ``attn_parts``' einsums return them; anything else raises) in the
+    layout ``block_*`` name (the module docstring), the plain version for
+    CPU ones."""
     op = "stacked_softmax_combine"
     if v.dim() != 5 or e.shape != v.shape[:4] or mask.shape != v.shape[:3]:
         raise ValueError(f"{op} shapes: e {tuple(e.shape)}, mask {tuple(mask.shape)}, "
@@ -896,11 +1054,13 @@ def softmax_combine_forward(e, mask, v) -> torch.Tensor:
     rb, n, f, nh, dh = v.shape
     if rb > 65535:
         raise ValueError(f"{op}: {rb} slots exceed the grid's 65535")
+    rows, depth = _sc_params(nh, dh, (block_n, block_out, block_in))
     out = torch.empty((rb, n, nh * dh), dtype=torch.float32, device=e.device)
     if min(rb, n, nh * dh) == 0:
         return out
-    launch_softmax_combine(e, mask_u8, v, out)
-    INFO_SC.record((rb, n, f, nh, dh))
+    launch_softmax_combine(e, mask_u8, v, out, rows, depth)
+    taken = softmax_combine_layout(nh, dh, rows, depth)
+    INFO_SC.record((rb, n, f, nh, dh), (taken[0], 4 * _SC_THREADS, taken[1]))
     return out
 
 
@@ -909,9 +1069,10 @@ class _StackedSoftmaxCombine(torch.autograd.Function):
     ``_sc_vjp_bwd`` (probabilities recomputed, none saved)."""
 
     @staticmethod
-    def forward(ctx, e, mask, v):
+    def forward(ctx, e, mask, v, blocks):
         ctx.save_for_backward(e, mask, v)
-        return softmax_combine_forward(e, mask, v)
+        return softmax_combine_forward(e, mask, v, **dict(
+            zip(("block_n", "block_out", "block_in"), blocks)))
 
     @staticmethod
     def backward(ctx, g):
@@ -925,13 +1086,17 @@ class _StackedSoftmaxCombine(torch.autograd.Function):
             de = alpha * (dalpha - (alpha * dalpha).sum(dim=2, keepdim=True))
         if ctx.needs_input_grad[2]:
             dv = torch.einsum("rnfh,rnhd->rnfhd", alpha, gh)
-        return de, None, dv
+        return de, None, dv, None
 
 
 def stacked_softmax_combine(
     e: torch.Tensor,  # [rb, n, f, nh] logits
     mask: torch.Tensor,  # [rb, n, f] bool or uint8
     v: torch.Tensor,  # [rb, n, f, nh, dh] values
+    *,
+    block_n: Optional[int] = None,
+    block_out: Optional[int] = None,
+    block_in: Optional[int] = None,
 ) -> torch.Tensor:
     """Masked softmax over f of ``e``, then ``out[s, i, h] = sum_j alpha[s, i,
     j, h] * v[s, i, j, h]`` -> ``[rb, n, nh * dh]``, differentiable in ``e``
@@ -939,19 +1104,21 @@ def stacked_softmax_combine(
     zeros.  CUDA tensors launch ``csrc/stacked_softmax_combine.cu``, which
     reads ``e`` and ``v`` through their strides (HGT's einsums return
     permuted views; they reach the kernel with no copy; ``v``'s last
-    dimension must have unit stride); CPU tensors run
-    :func:`stacked_softmax_combine_ref`."""
-    return _StackedSoftmaxCombine.apply(e, mask, v)
+    dimension must have unit stride) in the layout ``block_*`` name (the
+    module docstring); CPU tensors run :func:`stacked_softmax_combine_ref`."""
+    return _StackedSoftmaxCombine.apply(e, mask, v, (block_n, block_out, block_in))
 
 
-def _attn_parts_agg(module, stacks, slot_u, h, q, mask) -> torch.Tensor:
+def _attn_parts_agg(module, stacks, slot_u, h, q, mask, opts=None) -> torch.Tensor:
     """The ``fuse_epilogue=False`` path: the module's ``attn_parts`` on
     per-slot weights (gathered with :func:`take_slots`, so their gradients
     sum back in a fixed order), then :func:`stacked_softmax_combine`."""
     scope_of = {s.name: s.scope for s in module.specs}
     p_slots = {name: take_slots(stacks[name], slot_u[scope_of[name]]) for name in stacks}
     e, v = torch.func.vmap(module.attn_parts)(p_slots, h, q)
-    out = stacked_softmax_combine(e, mask, v)
+    _, n, f, d_in = h.shape
+    out = stacked_softmax_combine(e, mask, v, **_blocks(
+        opts, "stacked_softmax_combine", e.device, n, f, d_in, v.shape[3] * v.shape[4]))
     bias = module.attn_bias(p_slots)
     return out if bias is None else out + bias[:, None, :]
 
@@ -966,20 +1133,37 @@ def stacked_agg(
     opts=None,
 ) -> torch.Tensor:
     """One level's AGG_r for every branch slot (see module docstring).
-    The kernels have fixed tiles: ``opts``' ``block_*`` fields reach no
-    launch, and ``autotune=True`` raises (:func:`refuse_autotune`)."""
+    Each CUDA launch of kernels 1, 3 and 4 takes the layout
+    :func:`~repro_torch.kernels.ops.resolve_blocks` gives its op and shape
+    class under ``opts`` (``block_*`` fields, then the tuning table when
+    ``autotune`` is on, then the shape's rule; the reference's ``_blocks``)."""
     scope_of = {s.name: s.scope for s in module.specs}
     use = kernel_choice(opts, "stacked_agg")
+    _, n, f, d_in = h.shape
     if (use and module.fused == "mean_linear" and scope_of.get("w") is not None
             and scope_of.get("w") == scope_of.get("b")):
-        refuse_autotune(opts)
-        return stacked_mean_linear(h, mask, stacks["w"], stacks["b"], slot_u[scope_of["w"]])
+        return stacked_mean_linear(h, mask, stacks["w"], stacks["b"], slot_u[scope_of["w"]],
+                                   **_blocks(opts, "stacked_mean_linear", h.device, n, f,
+                                             d_in, stacks["w"].shape[2]))
     if use and module.fused == "softmax_combine":
         if getattr(opts, "fuse_epilogue", True):
-            refuse_autotune(opts)
-            epi = module.attn_epilogue(stacks, slot_u, q, linear=_epilogue_linear,
+            epi = module.attn_epilogue(stacks, slot_u, q,
+                                       linear=functools.partial(_epilogue_linear, opts=opts),
                                        take=take_slots)
             if epi is not None:
-                return stacked_attn_epilogue(epi, h, mask)
-        return _attn_parts_agg(module, stacks, slot_u, h, q, mask)
+                return stacked_attn_epilogue(epi, h, mask, **_blocks(
+                    opts, "stacked_attn_epilogue", h.device, n, f, d_in,
+                    int(epi.num_heads) * int(epi.head_dim)))
+        return _attn_parts_agg(module, stacks, slot_u, h, q, mask, opts)
     return stacked_agg_ref(module, stacks, slot_u, h, q, mask)
+
+
+def _blocks(opts, op: str, device, n: int, f: int, d_in: int, d_out: int) -> dict:
+    """The ``block_*`` keywords of a launch on ``device``: the resolved
+    layout on CUDA (``None`` fields left out: the rule), none on the CPU,
+    where no field and no table is read."""
+    if torch.device(device).type != "cuda":
+        return {}
+    blocks = resolve_blocks(opts, op, n, f, d_in, d_out)
+    return {k: v for k, v in zip(("block_n", "block_out", "block_in"), blocks)
+            if v is not None}

@@ -30,6 +30,7 @@ from repro.serve.full_graph import spmd_logits_for_batch
 from repro_torch.api import Heta, HetaConfig, KernelConfig
 from repro_torch.convert import stacks_from_reference, tables_from_reference
 from repro_torch.core import raf_spmd
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.stacked_relation_agg import ops as sra
 from repro_torch.serve import full_graph as fg
@@ -265,13 +266,15 @@ def test_unfused_attention_raises_on_cuda_tensors(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the plain version ran on a CUDA-routed call")
 
-    def fake_launch(e, mask_u8, v, out):  # the kernel picks its own rows per block
+    def fake_launch(e, mask_u8, v, out, rows, depth):  # 0, 0: the kernel's own rule
         launched.append(tuple(v.shape))
         out.copy_(ref_version(e, mask_u8.bool(), v))
 
     monkeypatch.setattr(sra, "_is_cuda", lambda t: True)
     monkeypatch.setattr(sra, "stacked_softmax_combine_ref", refuse)
     monkeypatch.setattr(sra, "launch_softmax_combine", fake_launch)
+    monkeypatch.setattr(sra, "softmax_combine_layout", lambda nh, dh, rows, depth:
+                        autotune.softmax_combine_choose(nh, dh, rows, depth)[:2])
     kops.reset_launch_counts()
     sess.fit(1)
     assert np.isfinite(sess.losses[-1])

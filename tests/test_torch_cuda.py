@@ -172,7 +172,7 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
                             mask, w, b, np.array([0, 1]))
     with pytest.raises(ValueError):
         stacked_mean_linear(h, mask, w.cpu(), b, np.array([0, 1]))
-    with pytest.raises(TypeError):  # the kernel's tile is fixed: no block sizes
+    with pytest.raises(ValueError, match="block_out"):  # its column tile is fixed at 64
         stacked_mean_linear(h, mask, w, b, np.array([0, 1]), block_n=64, block_out=128)
     with pytest.raises(ValueError, match="int32"):
         stacked_mean_linear(h, mask, w, b, torch.tensor([0, 1], device=cuda_device))
@@ -190,8 +190,8 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
         big = torch.empty(1, device=cuda_device).expand(n, 1 << 20)
         with pytest.raises(kops.KernelLaunchError):
             launch_kernel(wide, torch.zeros(n, dtype=torch.int32, device=cuda_device), big)
-    # the attention epilogue's tile is fixed in its source: its raw launch
-    # takes no rows per block and no d_in chunk
+    # the attention epilogue's raw launch takes its layout as rm alone: no
+    # rows per block and no d_in chunk
     h4, mask4, ops4, us4, kw4 = _attn_case(2, 5, 3, 6, 2, 4, 2, "hgt", 0, cuda_device)
     out4 = torch.empty((2, 5, 8), device=cuda_device)
     raw = (h4, mask4.view(torch.uint8), ops4["qv"], None, ops4["we"], ops4["wv"], ops4["pe"],
@@ -203,16 +203,21 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda_device):
     torch.cuda.synchronize()
     np.testing.assert_allclose(out4.cpu().numpy(), stacked_attn_epilogue_ref(
         h4, mask4, **ops4, us=us4, num_heads=2, head_dim=4, **kw4).cpu().numpy(), **TOL)
-    # kernel 3 picks its rows per block from the head width itself: its raw
-    # launch takes the operands and nothing else
+    # kernel 3's raw launch takes rows per block and a chunk depth (0: its
+    # rule from the head width): past the 128 rows 256 threads hold at H =
+    # 8, or past a depth of 16, the entry point refuses the layout
     e3 = torch.zeros((2, 5, 3, 2), device=cuda_device)
     v3 = torch.ones((2, 5, 3, 2, 4), device=cuda_device)
     m3 = torch.ones((2, 5, 3), dtype=torch.uint8, device=cuda_device)
     out3 = torch.empty((2, 5, 8), device=cuda_device)
+    for bad in (dict(rows=129), dict(depth=17), dict(rows=-1)):
+        with pytest.raises(kops.KernelLaunchError):
+            sra.launch_softmax_combine(e3, m3, v3, out3, **bad)
     with pytest.raises(TypeError):
-        sra.launch_softmax_combine(e3, m3, v3, out3, 32)
-    with pytest.raises(TypeError):
-        sra.launch_softmax_combine(e3, m3, v3, out3, rows=32)
+        sra.launch_softmax_combine(e3, m3, v3, out3, block_n=32)
+    sra.launch_softmax_combine(e3, m3, v3, out3, rows=3, depth=2)
+    torch.cuda.synchronize()
+    assert torch.equal(out3, torch.ones_like(out3))
     sra.launch_softmax_combine(e3, m3, v3, out3)
     torch.cuda.synchronize()
     assert torch.equal(out3, torch.ones_like(out3))  # equal logits: the mean of ones
@@ -328,19 +333,21 @@ def test_cuda_dh_is_the_same_bit_for_bit(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_block_override_reaches_only_the_forward(cuda_device):
-    """kernels.block_* reach no launch on the card: both kernels' tiles are
-    fixed (their wrappers take no block sizes), and the outputs and
-    gradients with the fields set equal those without, bit for bit."""
+    """kernels.block_n sets the forward kernel's layout on the card (64-row
+    tiles where the rule takes 16) and reaches no other launch: the
+    backward's tile is fixed (its wrapper takes no block sizes); the outputs
+    and gradients equal those without the field, bit for bit."""
     rb, n, f, di, do, U = 6, 200, 3, 128, 64, 6
     h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=11)
     g = np.random.default_rng(12).standard_normal((rb, n, do)).astype(np.float32)
     dev = [torch.from_numpy(a).to(cuda_device) for a in (h, mask, w, b, g)]
     with pytest.raises(TypeError):
         stacked_mean_linear_dh(dev[4], dev[1], dev[2], slot_u, block_n=64)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="block_in"):  # its chunk depth is fixed at 32
         stacked_mean_linear(*dev[:4], slot_u, block_in=64)
     results = []
-    for opts in (None, KernelConfig(block_n=64, block_in=128)):
+    for opts, tile in ((None, 16), (KernelConfig(block_n=64, block_in=32), 64)):
+        kops.reset_launch_counts()
         th, tw, tb = (torch.from_numpy(a).to(cuda_device).requires_grad_(True)
                       for a in (h, w, b))
         before = {k: kops.KERNELS[k].launches
@@ -351,6 +358,9 @@ def test_cuda_block_override_reaches_only_the_forward(cuda_device):
         torch.cuda.synchronize()
         for k, v in before.items():
             assert kops.KERNELS[k].launches == v + 1, k
+        assert dict(kops.KERNELS["stacked_mean_linear"].layouts) == {
+            ((rb, n, f, di, do, U), (tile, 64, 32)): 1}
+        assert not kops.KERNELS["stacked_mean_linear_dh"].layouts
     for name, a, c in zip(("out", "dh", "dw", "db"), results[1], results[0]):
         assert torch.equal(a, c), name
 
@@ -534,9 +544,13 @@ def test_cuda_attn_rows_shrink_with_fanout(cuda_device):
 
     from repro_torch.kernels.build import load
 
-    fn = load("stacked_attn_epilogue").stacked_attn_epilogue_rows
-    fn.argtypes = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
-    fn.restype = ctypes.c_longlong
+    rows = load("stacked_attn_epilogue").stacked_attn_epilogue_rows
+    rows.argtypes = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+    rows.restype = ctypes.c_longlong
+
+    def fn(*args):  # the rule's layout
+        return rows(*args, 0)
+
     for (f, d_in, nh, dh, two), want in (
             ((1, 789, 4, 16, 0), 64), ((3, 128, 4, 16, 0), 21), ((3, 128, 4, 16, 1), 21),
             ((4, 64, 4, 16, 1), 16), ((16, 128, 4, 16, 1), 4), ((100, 128, 4, 16, 1), 1),
@@ -1397,3 +1411,245 @@ def test_cuda_lm_in_place_update_is_bitwise_adam_update(cuda_device, monkeypatch
                         tree_leaves([want_p, want_opt])):
             assert a.device == b.device and torch.equal(a, b)
     assert tree_map(lambda t: t.device.type, state["params"])["head"] == "cuda"
+
+
+# --------------------------------------------------------------------------
+# launch layouts of kernels 1, 3 and 4 (the tuning table's launch parameters)
+# --------------------------------------------------------------------------
+
+# kernel 1 (rb, n, f, d_in, d_out, U) off the tile multiples: ragged n, d_in
+# and d_out, f in {1, 3, 16}, the training leaf and a serving block
+LAYOUT_ML_SHAPES = [(5, 17, 4, 37, 24, 3), (3, 130, 1, 129, 65, 2), (2, 1000, 16, 100, 64, 2),
+                    (6, 4096, 3, 128, 64, 6), (3, 1024, 16, 128, 64, 3)]
+# kernel 4 (rb, n, f, d_in, nh, dh, U): ragged n and d_in, f in {1, 3, 5, 16,
+# 100}, H = 72, the training leaf and the serving block
+LAYOUT_ATTN_SHAPES = [(5, 19, 4, 23, 4, 8, 3), (3, 130, 3, 129, 4, 16, 2),
+                      (3, 50, 5, 70, 3, 24, 2), (2, 9, 100, 33, 4, 16, 2),
+                      (6, 4096, 3, 128, 4, 16, 6), (2, 1024, 16, 128, 4, 16, 2)]
+# kernel 3 (rb, n, f, nh, dh): ragged n, f past one chunk, dh = 5, H = 320
+# (two rows a block at most), the training leaf and the serving block
+LAYOUT_SC_SHAPES = [(3, 21, 4, 2, 5), (5, 130, 3, 4, 16), (2, 33, 20, 4, 16), (2, 9, 100, 4, 16),
+                    (2, 33, 3, 8, 40), (6, 4096, 3, 4, 16), (2, 1024, 16, 4, 16)]
+
+
+def _sc_layouts(nh, dh):
+    """Kernel 3 layouts to try: rows per block 1, 2, 3, half the most and
+    the most a block holds, each at the rule's depth, at depth 1 and 3."""
+    most = sra.softmax_combine_layout(nh, dh, 0, 0)[0]
+    rows = sorted({r for r in (1, 2, 3, most // 2, most) if 1 <= r <= most})
+    return [(r, 1024, d) for r in rows for d in (None, 1, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LAYOUT_ML_SHAPES)
+def test_cuda_mean_linear_layouts_match_plain(cuda_device, shape):
+    """Both tiles of kernel 1 within 1e-5 of the plain version; KERNELS
+    records the tile each launch took."""
+    rb, n, f, di, do, U = shape
+    h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=21)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (h, mask, w, b)]
+    want = stacked_mean_linear_ref(*args, slot_u)
+    for tile in (16, 64):
+        kops.reset_launch_counts()
+        got = stacked_mean_linear(*args, slot_u, block_n=tile)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+        assert dict(kops.KERNELS["stacked_mean_linear"].layouts) == {
+            ((rb, n, f, di, do, U), (tile, 64, 32)): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["rgat", "hgt"])
+@pytest.mark.parametrize("shape", LAYOUT_ATTN_SHAPES)
+def test_cuda_attn_epilogue_layouts_match_plain(cuda_device, shape, variant):
+    """The tile and the lean layout of kernel 4, where the shape takes
+    each, within 1e-5 of the plain version, residuals included."""
+    rb, n, f, di, nh, dh, U = shape
+    h, mask, ops, us, kw = _attn_case(rb, n, f, di, nh, dh, U, variant, 22, cuda_device)
+    want = stacked_attn_epilogue_ref(h, mask, **ops, us=us, num_heads=nh, head_dim=dh,
+                                     with_residuals=True, **kw)
+    two = variant == "hgt"
+    takes = [16 * rm for rm in (1, 4) if sra.attn_layout(f, di, nh, dh, two, two, rm)[0]]
+    assert 16 in takes
+    for tile in takes:
+        kops.reset_launch_counts()
+        got = attn_epilogue_forward(h, mask, **ops, us=us, num_heads=nh, head_dim=dh,
+                                    with_residuals=True, block_n=tile, **kw)
+        torch.cuda.synchronize()
+        for name, a, c in zip(("out", "z0", "v0"), got, want):
+            np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), err_msg=name, **TOL)
+        [(_, layout)] = kops.KERNELS["stacked_attn_epilogue"].layouts
+        assert layout == (tile, 64, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "head-major"])
+@pytest.mark.parametrize("shape", LAYOUT_SC_SHAPES)
+def test_cuda_softmax_combine_layouts_match_plain(cuda_device, shape, layout):
+    """Kernel 3 at fewer rows per block and shallower chunks than its rule,
+    on contiguous operands and on HGT's head-major views (a smaller R changes
+    the grid, not the strides), within 1e-5 of the plain version."""
+    rb, n, f, nh, dh = shape
+    e, mask, v = _combine_case(rb, n, f, nh, dh, cuda_device, layout)
+    want = stacked_softmax_combine_ref(e, mask, v).cpu().numpy()
+    rule = sra.softmax_combine_layout(nh, dh, 0, 0)
+    for rows, cols, depth in _sc_layouts(nh, dh):
+        kops.reset_launch_counts()
+        got = stacked_softmax_combine(e, mask, v, block_n=rows, block_out=cols, block_in=depth)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want, err_msg=str((rows, depth)), **TOL)
+        [(_, taken)] = kops.KERNELS["stacked_softmax_combine"].layouts
+        assert taken == (rows, 1024, depth or sra.softmax_combine_layout(nh, dh, rows, 0)[1])
+    assert rule[0] == sra.softmax_combine_layout(nh, dh, rule[0], 0)[0]
+
+
+@pytest.mark.cuda
+def test_cuda_unlaunchable_layouts_raise(cuda_device):
+    """A layout the shape cannot take raises KernelLaunchError at the raw
+    launch; a block_* no launch of the kernel takes raises ValueError at the
+    wrapper, naming what the shape takes.  Nothing is clamped."""
+    rb, n, f, di, do, U = 2, 40, 3, 16, 64, 2
+    h, mask, w, b, slot_u = _mean_linear_case(rb, n, f, di, do, U, seed=23)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (h, mask, w, b)]
+    slots = stage_slot_u(slot_u, U, cuda_device)
+    out = torch.empty((rb, n, do), device=cuda_device)
+    for rm in (2, 8, -1):
+        with pytest.raises(kops.KernelLaunchError):
+            sra.launch_kernel(args[0], args[1].view(torch.uint8), *args[2:], slots, out, rm)
+    for kw, match in ((dict(block_n=32), "16 or 64"), (dict(block_n=128), "16 or 64"),
+                      (dict(block_out=128), "64"), (dict(block_in=512), "32")):
+        with pytest.raises(ValueError, match=match):
+            stacked_mean_linear(*args, slot_u, **kw)
+    # kernel 4 at HGT's fanout limit: only the lean layout fits
+    h4, mask4, ops4, us4, kw4 = _attn_case(2, 5, 392, 128, 4, 16, 2, "hgt", 0, cuda_device)
+    assert sra.attn_layout(392, 128, 4, 16, True, True, 4) == (0, 0)
+    out4 = torch.empty((2, 5, 64), device=cuda_device)
+    raw = (h4, mask4.view(torch.uint8), ops4["qv"], None, ops4["we"], ops4["wv"], ops4["pe"],
+           ops4["pv"], us4, out4, None, None, 4, 16, kw4["scale"], None)
+    for rm in (4, 2):
+        with pytest.raises(kops.KernelLaunchError):
+            sra.launch_attn_epilogue(*raw, rm=rm)
+    with pytest.raises(ValueError, match="block_n 16 "):
+        attn_epilogue_forward(h4, mask4, **ops4, us=us4, num_heads=4, head_dim=16, block_n=64,
+                              **kw4)
+    # kernel 3: rows past what 256 threads hold, depths past 16
+    e, m, v = _combine_case(2, 9, 5, 4, 16, cuda_device)
+    for kw in (dict(block_n=17), dict(block_in=17), dict(block_n=0), dict(block_out=64)):
+        with pytest.raises(ValueError, match="block"):
+            stacked_softmax_combine(e, m, v, **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.fixture
+def table_path(monkeypatch, tmp_path):
+    """The committed table's path pointed at a file of the test's own, and
+    the cached table dropped before and after."""
+    path = tmp_path / "tuning_table.json"
+    monkeypatch.setattr(kops, "TUNING_TABLE_PATH", path)
+    kops.load_tuning_table.cache_clear()
+    yield path
+    kops.load_tuning_table.cache_clear()
+
+
+def _layouts_run(model, fuse, opts, device, seed=31):
+    """One stacked_agg call of ``model`` on the card from reset counts:
+    its output and the layouts KERNELS recorded (the input width d_in is
+    40, what kernel 3's key needs beside its recorded shape)."""
+    mod, stacks, slot_u, h, q, mask = _module_inputs(model, 3, 300, 5, 40, 24, seed=seed)
+    st = {k: torch.from_numpy(v).to(device) for k, v in stacks.items()}
+    kops.reset_launch_counts()
+    out = stacked_agg(mod, st, slot_u, *(torch.from_numpy(a).to(device) for a in (h, q, mask)),
+                      opts=opts)
+    torch.cuda.synchronize()
+    return out, {name: dict(info.layouts) for name, info in kops.KERNELS.items()
+                 if info.layouts}
+
+
+def _table_of(layouts, d_in=40):
+    """A measured-schema table holding ``{op: {shape: layout}}`` under the
+    keys stacked_agg resolves them by."""
+    entries = {}
+    for op, lays in layouts.items():
+        for shape in lays:
+            if op == "stacked_mean_linear":
+                key = kops.shape_class(op, shape[1], shape[2], shape[3], shape[4])
+            elif op == "stacked_attn_epilogue":
+                key = kops.shape_class(op, shape[1], shape[2], shape[3], shape[4] * shape[5])
+            else:
+                key = kops.shape_class(op, shape[1], shape[2], d_in, shape[3] * shape[4])
+            entries[key] = dict(zip(("block_n", "block_out", "block_in"), lays[shape]),
+                                source="measured", cost_us=1.0)
+    return {"version": 1, "mode": "measured", "backend": "cuda", "card": "test",
+            "entries": entries}
+
+
+RULE_CASES = [("rgcn", True), ("rgat", True), ("hgt", True), ("rgat", False), ("hgt", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,fuse", RULE_CASES)
+def test_cuda_rule_is_todays_layout_bit_for_bit(cuda_device, table_path, model, fuse):
+    """autotune=False launches each shape rule's layout (the entry point's
+    choice at 0), which the port's restatement (autotune.py) and the entry
+    point's query agree on; the same layouts named by a table under
+    autotune=True give the same bits and the same records."""
+    from repro_torch.kernels import autotune
+
+    out, layouts = _layouts_run(model, fuse, KernelConfig(fuse_epilogue=fuse), cuda_device)
+    want_ops = {"stacked_mean_linear"} if model == "rgcn" else (
+        {"stacked_mean_linear", "stacked_attn_epilogue"} if fuse
+        else {"stacked_softmax_combine"})
+    assert set(layouts) == want_ops
+    rules = {}
+    for name, lays in layouts.items():
+        rules[name] = {}
+        for (shape, lay), count in lays.items():
+            if name == "stacked_mean_linear":
+                rb, n, f, di, do, _ = shape
+                assert lay == autotune.rule_blocks(name, rb, n, f, di, do)
+                assert lay[0] == 16 * sra.mean_linear_layout(rb, n, do, 0)
+            elif name == "stacked_attn_epilogue":
+                rb, n, f, di, nh, dh, _, uv, ua = shape[:9]
+                mine = autotune.attn_choose(f, di, nh, dh, uv > 0, ua > 0, 0)
+                assert lay[0] == 16 * mine[0] == 16 * sra.attn_layout(f, di, nh, dh, uv > 0,
+                                                                     ua > 0, 0)[0]
+            else:
+                *_, nh, dh = shape
+                assert (lay[0], lay[2]) == autotune.softmax_combine_choose(nh, dh, 0, 0)[:2] \
+                    == sra.softmax_combine_layout(nh, dh, 0, 0)
+            rules[name][shape] = lay
+    autotune.save_table(_table_of(rules), table_path)
+    named, named_layouts = _layouts_run(model, fuse,
+                                        KernelConfig(fuse_epilogue=fuse, autotune=True),
+                                        cuda_device)
+    assert torch.equal(named, out)
+    assert named_layouts == layouts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,fuse", RULE_CASES)
+def test_cuda_table_layouts_reach_the_launch(cuda_device, table_path, model, fuse):
+    """Under autotune=True each launch takes its table entry's layout (the
+    other tile, the lean layout, one row a block at depth 2), as KERNELS
+    shows, within 1e-5 of the rule's output; autotune=False reads no table;
+    an entry the kernel cannot launch raises, with no fall-back."""
+    from repro_torch.kernels import autotune
+
+    out, layouts = _layouts_run(model, fuse, KernelConfig(fuse_epilogue=fuse), cuda_device)
+    other = {}
+    for name, lays in layouts.items():
+        other[name] = {shape: ((80 - lay[0], 64, 32) if name != "stacked_softmax_combine"
+                               else (1, 1024, 2)) for shape, lay in lays}
+    autotune.save_table(_table_of(other), table_path)
+    got, got_layouts = _layouts_run(model, fuse, KernelConfig(fuse_epilogue=fuse, autotune=True),
+                                    cuda_device)
+    np.testing.assert_allclose(got.cpu().numpy(), out.cpu().numpy(), **TOL)
+    assert {name: {shape: lay for shape, lay in lays} for name, lays in got_layouts.items()} \
+        == other
+    _, off_layouts = _layouts_run(model, fuse, KernelConfig(fuse_epilogue=fuse), cuda_device)
+    assert off_layouts == layouts
+    bad = {name: {shape: (32, 64, 32) if name != "stacked_softmax_combine" else (1, 1024, 99)
+                  for shape, _ in lays} for name, lays in layouts.items()}
+    autotune.save_table(_table_of(bad), table_path)
+    with pytest.raises(ValueError, match="cannot launch"):
+        _layouts_run(model, fuse, KernelConfig(fuse_epilogue=fuse, autotune=True), cuda_device)

@@ -148,12 +148,18 @@ def test_block_fields_change_no_result(fields):
 
 
 def test_kernels_take_no_block_sizes():
-    """Kernels 1 and 5 have fixed tiles: their wrappers take no block_*."""
+    """Kernels 2 and 5 have fixed tiles: their wrappers take no block_*.
+    Kernel 1's takes the layout of a CUDA launch and, on CPU tensors, reads
+    none of it: any value gives the plain version's answer."""
     h, q, mask, w, b, slot_u = _mean_linear_case(2, 3, 4, 5, 6, 2, seed=1)
     args = [torch.from_numpy(a) for a in (h, mask, w, b)]
-    for kw in (dict(block_n=64), dict(block_out=64), dict(block_in=32)):
-        with pytest.raises(TypeError):
-            stacked_mean_linear(*args, slot_u, **kw)
+    plain = stacked_mean_linear(*args, slot_u)
+    for kw in (dict(block_n=64), dict(block_out=64), dict(block_in=32),
+               dict(block_n=7, block_out=1, block_in=3)):
+        assert torch.equal(stacked_mean_linear(*args, slot_u, **kw), plain)
+    g = torch.zeros((2, 3, 6))
+    with pytest.raises(TypeError):
+        stacked_mean_linear_dh(g, args[1], args[2], slot_u, block_n=64)
     dz = torch.zeros((2, 3, 4, 6))
     us = torch.zeros((3, 2), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -262,22 +268,28 @@ def test_kernel_options_policy():
     assert kops.kernel_choice(KernelConfig(gather=False), "stacked_agg")
     with pytest.raises(ValueError, match="interpret"):
         kops.kernel_choice(KernelConfig(interpret=True), "gather")
-    # no tuning table: autotune raises, on its own and on the kernel path
-    kops.refuse_autotune(None)
-    kops.refuse_autotune(KernelConfig(block_n=8, block_in=32))
-    with pytest.raises(NotImplementedError):
-        kops.refuse_autotune(KernelConfig(autotune=True))
+    # autotune=True runs: on CPU tensors the plain version, with no table or
+    # block_* read (the resolution is never asked), the answer autotune=False
+    # gives, bit for bit
+    assert not hasattr(kops, "refuse_autotune")
     h, q, mask, w, b, slot_u = _mean_linear_case(2, 5, 3, 4, 6, 2, seed=1)
-    with pytest.raises(NotImplementedError):
-        stacked_agg(get_relation_module("rgcn"), {"w": torch.from_numpy(w),
-                                                  "b": torch.from_numpy(b)},
-                    {"relation": slot_u}, torch.from_numpy(h), torch.from_numpy(q),
-                    torch.from_numpy(mask), opts=KernelConfig(autotune=True))
+    outs = []
+    for opts in (KernelConfig(), KernelConfig(autotune=True),
+                 KernelConfig(autotune=True, block_n=7, block_out=1, block_in=3)):
+        outs.append(stacked_agg(get_relation_module("rgcn"), {"w": torch.from_numpy(w),
+                                                              "b": torch.from_numpy(b)},
+                                {"relation": slot_u}, torch.from_numpy(h),
+                                torch.from_numpy(q), torch.from_numpy(mask), opts=opts))
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
     assert set(kops.KERNELS) >= {"stacked_mean_linear", "stacked_mean_linear_dh",
                                  "gather_rows"}
-    # every kernel's tile is fixed in its source: no launch sizes to choose
+    # the layout of a CUDA launch resolves in the reference's order, with the
+    # shape's rule (None) in place of its DEFAULT_BLOCKS
     assert not hasattr(kops, "DEFAULT_BLOCKS")
-    assert not hasattr(kops, "resolve_blocks")
+    assert kops.resolve_blocks(None, "stacked_mean_linear", 1024, 3, 128, 64) == \
+        (None, None, None)
+    assert kops.resolve_blocks(KernelConfig(block_n=64), "stacked_mean_linear", 1024, 3, 128,
+                               64) == (64, None, None)
 
 
 def test_launch_path_names_missing_raw_queries(monkeypatch):

@@ -27,6 +27,7 @@ from repro.api import HetaConfig as RefHetaConfig
 from repro.kernels.stacked_relation_agg import stacked_softmax_combine as ref_combine
 from repro_torch.api import Heta, HetaConfig
 from repro_torch.convert import bundle_from_reference, stacks_from_reference
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.stacked_relation_agg import ops as sra
 from repro_torch.kernels.stacked_relation_agg import stacked_softmax_combine
@@ -200,9 +201,10 @@ def test_unfused_path_reaches_kernel_3_on_cuda_tensors(monkeypatch):
     launched = []
 
     def fake_launch(*args, **kwargs):
-        # the kernel picks its rows per block itself: operands only
-        assert not kwargs and len(args) == 4, (len(args), sorted(kwargs))
-        e, mask_u8, v, out = args
+        # the operands and the layout: 0, 0 is the entry point's own rule
+        assert not kwargs and len(args) == 6, (len(args), sorted(kwargs))
+        e, mask_u8, v, out, rows, depth = args
+        assert (rows, depth) == (0, 0)
         launched.append((tuple(v.shape), v.is_contiguous()))
         out.copy_(plain(e, mask_u8.bool(), v))
 
@@ -213,10 +215,17 @@ def test_unfused_path_reaches_kernel_3_on_cuda_tensors(monkeypatch):
     monkeypatch.setattr(sra, "_is_cuda", lambda t: True)
     monkeypatch.setattr(sra, "stacked_softmax_combine_ref", refuse)
     monkeypatch.setattr(sra, "launch_softmax_combine", fake_launch)
+    # the entry point's layout query, for the record: its restatement (the
+    # card holds the two equal)
+    monkeypatch.setattr(sra, "softmax_combine_layout", lambda nh, dh, rows, depth:
+                        autotune.softmax_combine_choose(nh, dh, rows, depth)[:2])
     kops.reset_launch_counts()
     sess.step()
     assert len(launched) == 2 == kops.KERNELS["stacked_softmax_combine"].launches
-    assert params == ["e", "mask_u8", "v", "out"]
+    assert params == ["e", "mask_u8", "v", "out", "rows", "depth"]
+    for shape, lay in kops.KERNELS["stacked_softmax_combine"].layouts:  # the rule's
+        rows, depth, _ = autotune.softmax_combine_choose(shape[3], shape[4], 0, 0)
+        assert lay == (rows, 1024, depth)
     assert not hasattr(sra, "softmax_combine_rows")
     # HGT's values reach the launch as the einsum's head-major view: no copy
     assert not any(contiguous for _, contiguous in launched)

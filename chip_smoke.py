@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                 # ogbn-mag at scale 0.1, the LM configs
     python3 chip_smoke.py --scale 1.0 --out results/smoke.json
 
-Phases, run in the order 1-6, 9, 9b, 9c, 7, 7c, 8 (any failure ends the run
+Phases, run in the order 1-6, 9, 9b, 9c, 9d, 7, 7c, 8 (any failure ends the run
 with a non-zero exit and no result line):
 
   1. environment — torch/CUDA versions, the card's name and power limit;
@@ -254,6 +254,36 @@ with a non-zero exit and no result line):
      relative Frobenius error 1e-4; 3 donated steps in lockstep with the
      CPU as in phase 8; the card's first update through adam_update bit for
      bit the in-place one; remat on and off within 1e-6.
+  9d. the multi-device tooling — (a) a one-rank NCCL group (a HashStore,
+     rank 0, world 1, the card as its device) and make_test_mesh(1, 1) on
+     the card; make_production_mesh() and serve() with
+     serve.production_mesh refused with MeshError naming world size 1
+     against 256 (an R-GCN session at scale 0.002); an EmbeddingServer
+     with its head replicated on the mesh answering 16 queries bit for bit
+     as one with no mesh, over one store.  (b) granite-moe-1b-a400m at full
+     size, bf16, weights from ``--seed``: from reset launch counts,
+     make_prefill_step on 4 x 2048 under ParallelCtx(expert_parallel,
+     sp_attention, constrain_activations) on that mesh with the kernel:
+     flash_attention once per attention layer (24) and nothing else, the
+     exchange a real all_to_all_single over NCCL; logits and cache bit for
+     bit the prefill without a context; both timed.  (c) llama3.2-3b at
+     full size, bf16, 1 x 4096: 6 donated steps (loss_fn's value and
+     gradient, then AdamW in place) under ParallelCtx(attn_chunk=1024) and
+     under ParallelCtx(attn_chunk=1024, remat_policy="dots"): losses
+     finite, step 0's batch re-scored lower, no kernel launched; step ms,
+     tokens/s and peak GB printed; at full width on 2 layers in fp32, 1 x
+     1024, chunk 256: the loss within 1e-5 of the einsum path's, every
+     gradient leaf within 1e-4 relative Frobenius, and "dots" gradients bit
+     for bit "full"'s.  (d) mamba2-1.3b at full size, bf16: the forward of
+     4 x 2048 with no context, ssd_chunk=64 and ssd_bf16, timed; on 2 fp32
+     layers ssd_chunk=64 within 1e-4 (times the logits' largest magnitude
+     where above 1) of the default, ssd_bf16's distance printed.  The group
+     is destroyed.  (e) python -m repro_torch.launch.dryrun for llama3.2-3b
+     x decode_32k and qwen3-moe-30b-a3b x train_4k --variant ep, each in a
+     process of its own with the card hidden (the fake 256-rank group must
+     be its default group), both at once: each ends [   ok], its record
+     printed.  The multi-rank exchange is held on the CPU (gloo): NCCL
+     takes one rank per GPU.
 
 Phase 3 also holds flash_attention against attention_ref at the reference's
 ATTN_CASES, rows with no visible key, ragged non-causal, sq = 1 with
@@ -274,6 +304,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -2248,6 +2279,357 @@ def run_lm_train_reference(name: str, seed: int, steps: int = 3) -> dict:
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# phase 9d: the multi-device tooling (ParallelCtx, expert-parallel MoE, the
+# mesh, the meta-device dry run)
+# --------------------------------------------------------------------------
+
+# phase 9b's granite prefill and phase 9c's llama step, the yardsticks the
+# ParallelCtx runs print beside theirs (PERF.md §5, on an H100 at 700 W)
+GRANITE_PREFILL_MS_9B = 72.33
+LLAMA_STEP_MS_9C, LLAMA_PEAK_GB_9C = 1250.50, 50.83
+PCTX_TRAIN_STEPS = 6
+# the dry runs of phase 9d (e): (arch, input shape, variant)
+DRYRUNS = (("llama3.2-3b", "decode_32k", None), ("qwen3-moe-30b-a3b", "train_4k", "ep"))
+
+
+def run_mesh(report: dict, card: str):
+    """Phase 9d (a): on the one-rank NCCL group (opened by the caller), the
+    (1, 1) test mesh; make_production_mesh and serve(production_mesh=True)
+    refused with MeshError naming world size 1 against 256; an
+    EmbeddingServer with its head on the mesh answering bit for bit as one
+    with none, over one store.  Returns the mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Heta
+    from repro_torch.launch.mesh import MeshError, make_production_mesh, make_test_mesh
+    from repro_torch.serve.server import EmbeddingServer
+
+    t0 = time.perf_counter()
+    mesh = make_test_mesh(1, 1, device_type="cuda")
+    check(mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1),
+          f"test mesh {mesh}")
+    try:
+        make_production_mesh()
+    except MeshError as exc:
+        refused = str(exc)
+    else:
+        raise SmokeFailure("make_production_mesh() built a 256-device mesh on one card")
+    check("world size 1" in refused and "256" in refused,
+          f"make_production_mesh's refusal names no sizes: {refused}")
+    sess = Heta(session_config(0.002, 32).updated(serve=dict(production_mesh=True)),
+                device=DEVICE)
+    sess.build_graph()
+    sess.partition()
+    sess.profile_and_cache()
+    sess.compile()
+    store = sess.infer_all()
+    try:
+        sess.serve()
+    except MeshError as exc:
+        serve_refused = str(exc)
+    else:
+        raise SmokeFailure("serve(production_mesh=True) served on one card")
+    check("world size 1" in serve_refused, f"serve's refusal: {serve_refused}")
+    n = store.embeddings[store.target_type].shape[0]
+    ids = np.random.default_rng(3).integers(0, n, (16, 8))
+    answers = {}
+    for label, kw in (("no mesh", {}), ("mesh", {"mesh": mesh})):
+        with EmbeddingServer(store, kernels=sess.config.kernels, **kw) as srv:
+            answers[label] = [srv.query(row, store.target_type) for row in ids]
+    same = all(np.array_equal(a.embeddings, b.embeddings) and np.array_equal(a.scores, b.scores)
+               for a, b in zip(answers["no mesh"], answers["mesh"]))
+    check(same, "the server with its head on the mesh answered unlike the one without")
+    del sess, store
+    torch.cuda.empty_cache()
+    res = dict(mesh=str(mesh), production_refused=refused, serve_refused=serve_refused,
+               queries=len(ids), bit_equal=same, seconds=time.perf_counter() - t0)
+    log(f"  (a) {mesh}: make_production_mesh refused ({refused}); serve(production_mesh=True) "
+        f"refused alike; {len(ids)} queries of 8 ids through EmbeddingServer(mesh=mesh) bit "
+        f"for bit those of mesh=None ({res['seconds']:.1f} s)")
+    report.setdefault("parallel", {})["mesh"] = res
+    return mesh
+
+
+def run_pctx_prefill(mesh, report: dict, seed: int, card: str):
+    """Phase 9d (b): granite-moe-1b-a400m at full size, bf16, prefill of 4 x
+    2048 under ParallelCtx(expert_parallel, sp_attention,
+    constrain_activations) on the one-rank mesh with the kernel: from reset
+    launch counts, flash_attention once per attention layer and nothing
+    else; logits and cache bit for bit the prefill without a context.
+    Returns the shapes kernel 8 was launched at."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import init_params, make_prefill_step
+    from repro_torch.models.transformer import ParallelCtx
+
+    cfg = get_arch("granite-moe-1b-a400m")
+    params = init_params(cfg, seed, DEVICE)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (4, 2048)),
+                             device=DEVICE)
+    pctx = ParallelCtx(mesh=mesh, dp_axes=("data",), moe="expert_parallel", sp_attention=True,
+                       constrain_activations=True)
+    runs = {}
+    for label, step in (("pctx", make_prefill_step(cfg, pctx=pctx)),
+                        ("plain", make_prefill_step(cfg))):
+        step(params, {"tokens": tokens})  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, shapes = launch_counts()
+        runs[label] = (ms, logits, cache, launches, shapes)
+    ms, logits, cache, launches, shapes = runs["pctx"]
+    want = attention_layers(cfg)
+    check(launches["flash_attention"] == want, f"(b) the ParallelCtx prefill launched "
+          f"flash_attention {launches['flash_attention']} times, want {want}")
+    check(not any(v for k, v in launches.items() if k != "flash_attention"),
+          f"(b) the ParallelCtx prefill launched other kernels: {launches}")
+    check(bool(torch.isfinite(logits).all()), "(b) non-finite logits")
+    _, p_logits, p_cache, _, _ = runs["plain"]
+    bits = torch.equal(logits, p_logits) and sorted(cache) == sorted(p_cache) and all(
+        torch.equal(cache[k], p_cache[k]) for k in cache)
+    check(bits, "(b) the ParallelCtx prefill's logits or cache differ from the plain prefill's")
+    res = dict(prefill_ms=ms, plain_prefill_ms=runs["plain"][0], launches=launches,
+               shapes=shape_dict(shapes), bit_equal=bits, card=card)
+    log(f"  (b) granite-moe-1b-a400m, bf16, prefill 4 x 2048 under ParallelCtx(expert_parallel, "
+        f"sp_attention, constrain_activations) on the one-rank mesh: {ms:.2f} ms, flash_attention "
+        f"launched {launches['flash_attention']} times; logits and cache bit for bit the plain "
+        f"prefill's ({runs['plain'][0]:.2f} ms here; phase 9b's {GRANITE_PREFILL_MS_9B} ms); "
+        f"{card}")
+    del params, logits, cache, runs
+    torch.cuda.empty_cache()
+    report.setdefault("parallel", {})["granite pctx prefill"] = res
+    return shapes
+
+
+def pctx_train_step(cfg, pctx, adam_cfg):
+    """A donated train step under ``pctx``, built as the reference's dry run
+    builds one: loss_fn's value and gradient, then AdamW in place."""
+    import repro_torch.models.transformer as tt
+    from repro_torch.optim.adam import adam_update_
+
+    def step(state, batch):
+        loss, grads = tt._value_and_grad(cfg, state["params"], batch, pctx=pctx)
+        adam_update_(adam_cfg, state["params"], grads, state["opt"])
+        return state, loss
+
+    return step
+
+
+def run_pctx_train(mesh, report: dict, seed: int, card: str) -> dict:
+    """Phase 9d (c): llama3.2-3b at full size, bf16, 1 x 4096, PCTX_TRAIN_STEPS
+    donated steps under ParallelCtx(attn_chunk=1024) and under
+    ParallelCtx(attn_chunk=1024, remat_policy="dots"): losses finite, step 0's
+    batch re-scored lower, no kernel launched; step ms (median of steps 2..),
+    tokens/s, peak GB.  Then at full width on 2 layers in fp32 (1 x 1024,
+    chunk 256): the chunked loss within 1e-5 of the einsum path's, each
+    gradient leaf within 1e-4 relative Frobenius; "dots" gradients bit for
+    bit "full"'s."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.transformer as tt
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import init_params, init_train_state, loss_fn
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.optim import AdamConfig
+    from repro_torch.optim.adam import tree_leaves
+
+    cfg = get_arch("llama3.2-3b")
+    out = {}
+    for label, kw in (("attn_chunk=1024", {}), ("attn_chunk=1024, dots", {"remat_policy": "dots"})):
+        pctx = ParallelCtx(mesh=mesh, dp_axes=("data",), attn_chunk=1024, **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, seed, DEVICE)
+        pipe = train_batches(cfg, np.random.default_rng(seed), 1, 4096, torch.device(DEVICE), seed)
+        step = pctx_train_step(cfg, pctx, AdamConfig(**LM_TRAIN_ADAM))
+        losses, times = [], []
+        try:
+            reset_launch_counts()
+            for i in range(PCTX_TRAIN_STEPS):
+                b = next(pipe)
+                if i == 0:
+                    first = b
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, b)
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t0)
+            launches, _ = launch_counts()
+        finally:
+            pipe.close()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            rescored = float(loss_fn(cfg, state["params"], first, remat=False, pctx=pctx))
+        del state, first, b
+        torch.cuda.empty_cache()
+        ms = float(np.median(times[2:])) * 1e3
+        res = dict(losses=losses, rescored=rescored, step_ms=ms,
+                   step_ms_all=[t * 1e3 for t in times], tokens_per_s=4096 / (ms / 1e3),
+                   peak_gb=peak_gb, launches=sum(launches.values()), card=card)
+        log(f"  (c) llama3.2-3b, bf16, 1 x 4096, ParallelCtx({label}): losses "
+            f"{[round(x, 4) for x in losses]}, step 0's batch after the run {rescored:.4f}; "
+            f"median step {ms:.2f} ms over steps 2..{PCTX_TRAIN_STEPS - 1} (all: "
+            f"{[round(t * 1e3, 1) for t in times]}), {res['tokens_per_s']:,.0f} tokens/s, peak "
+            f"{peak_gb:.2f} GB (phase 9c without a context: {LLAMA_STEP_MS_9C} ms, "
+            f"{LLAMA_PEAK_GB_9C} GB); {card}")
+        check(all(math.isfinite(x) for x in losses), f"(c) {label}: non-finite loss {losses}")
+        check(rescored < losses[0], f"(c) {label}: step 0's batch scores {rescored:.5f} after "
+              f"the run, not below its {losses[0]:.5f}")
+        check(not any(launches.values()), f"(c) {label}: kernels launched {launches}")
+        out[label] = res
+
+    cfg2 = dataclasses.replace(cfg, name="llama3.2-3b-2l-fp32", num_layers=2, dtype="float32")
+    params = init_params(cfg2, seed, DEVICE)
+    batch = lm_train_batch(cfg2, np.random.default_rng(seed), 1, 1024)
+    chunk = ParallelCtx(mesh=mesh, dp_axes=("data",), attn_chunk=256)
+    loss_e, g_e = tt._value_and_grad(cfg2, params, batch)
+    loss_c, g_c = tt._value_and_grad(cfg2, params, batch, pctx=chunk)
+    _, g_d = tt._value_and_grad(cfg2, params, batch,
+                                pctx=dataclasses.replace(chunk, remat_policy="dots"))
+    loss_gap = abs(float(loss_c) - float(loss_e))
+    rel = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
+              for a, b in zip(tree_leaves(g_c), tree_leaves(g_e)))
+    dots_bits = all(torch.equal(a, b) for a, b in zip(tree_leaves(g_d), tree_leaves(g_c)))
+    log(f"  (c) llama3.2-3b, 2 layers, fp32, 1 x 1024: chunked (256) against einsum: loss gap "
+        f"{loss_gap:.3g} (limit 1e-5), largest relative Frobenius gap of a gradient leaf "
+        f"{rel:.3g} (limit 1e-4); remat 'dots' gradients bit for bit 'full''s: {dots_bits}")
+    check(loss_gap <= 1e-5, f"(c) chunked attention's loss {loss_gap:.3g} from the einsum's")
+    check(rel <= 1e-4, f"(c) a chunked gradient leaf {rel:.3g} from the einsum's")
+    check(dots_bits, "(c) remat 'dots' gradients differ from 'full''s")
+    out["fp32"] = dict(loss_gap=loss_gap, grad_rel_frobenius=rel, dots_bit_equal=dots_bits)
+    del params, g_e, g_c, g_d
+    torch.cuda.empty_cache()
+    report.setdefault("parallel", {})["llama pctx training"] = out
+    return out
+
+
+def run_pctx_ssd(mesh, report: dict, seed: int, card: str) -> dict:
+    """Phase 9d (d): mamba2-1.3b at full size, bf16: the forward of a 4 x 2048
+    prompt with no context, under ParallelCtx(ssd_chunk=64) and under
+    ParallelCtx(ssd_bf16=True), timed (a warm-up first).  At full width on 2
+    layers in fp32: ssd_chunk=64 within 1e-4 of the default (relative to the
+    logits' largest magnitude where it exceeds 1); the ssd_bf16 distance
+    printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.transformer import ParallelCtx
+
+    cfg = get_arch("mamba2-1.3b")
+    knobs = (("default", None), ("ssd_chunk=64", dict(ssd_chunk=64)),
+             ("ssd_bf16", dict(ssd_bf16=True)))
+    params = init_params(cfg, seed, DEVICE)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (4, 2048)),
+                             device=DEVICE)
+    times = {}
+    for label, kw in knobs:
+        pctx = None if kw is None else ParallelCtx(mesh=mesh, dp_axes=("data",), **kw)
+        forward(cfg, params, {"tokens": tokens}, pctx=pctx)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = forward(cfg, params, {"tokens": tokens}, pctx=pctx)
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(logits).all()), f"(d) {label}: non-finite logits")
+        del logits
+    del params
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, name="mamba2-1.3b-2l-fp32", num_layers=2, dtype="float32")
+    params = init_params(cfg2, seed, DEVICE)
+    small = tokens[:, :1024]
+    out = {label: forward(cfg2, params, {"tokens": small}, pctx=None if kw is None else
+                          ParallelCtx(mesh=mesh, dp_axes=("data",), **kw))
+           for label, kw in knobs}
+    scale = float(out["default"].abs().max())
+    gap = float((out["ssd_chunk=64"] - out["default"]).abs().max())
+    bf16_rel = float((out["ssd_bf16"] - out["default"]).norm() / out["default"].norm())
+    res = dict(forward_ms=times, fp32_chunk64_gap=gap, fp32_logit_scale=scale,
+               fp32_bf16_rel_frobenius=bf16_rel, card=card)
+    log(f"  (d) mamba2-1.3b, bf16, forward 4 x 2048: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in times.items()) + f" (phase 9b's prefill 315.72 ms); "
+        f"2 layers fp32, 4 x 1024: ssd_chunk=64 {gap:.3g} from the default (logits up to "
+        f"{scale:.3g}; limit 1e-4 x max(1, that)), ssd_bf16 {bf16_rel:.3g} relative Frobenius "
+        f"(printed); {card}")
+    check(gap <= 1e-4 * max(1.0, scale), f"(d) ssd_chunk=64 {gap:.3g} from the default")
+    del params, out
+    torch.cuda.empty_cache()
+    report.setdefault("parallel", {})["mamba2 ssd knobs"] = res
+    return res
+
+
+def run_dryruns(report: dict) -> dict:
+    """Phase 9d (e): the dry run of each of DRYRUNS in a process of its own
+    (the fake 256-rank group must be its default group; the card hidden
+    from it), all at once: each must end ``[   ok]``; its record printed."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as where:
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+        procs = []
+        for arch, shape, variant in DRYRUNS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--out", where] + (["--variant", variant] if variant else [])
+            procs.append(((arch, shape, variant), subprocess.Popen(
+                cmd, cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for (arch, shape, variant), proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("[")]
+            check(proc.returncode == 0 and lines and lines[-1].startswith("[   ok]"),
+                  f"(e) the dry run of {arch} x {shape} ({variant}) ended "
+                  f"{lines[-1:] or stderr[-2000:]} (exit {proc.returncode})")
+            mesh = "pod16x16" + (f"+{variant}" if variant else "")
+            rec = json.loads(Path(where, f"{arch}__{shape}__{mesh}.json").read_text())
+            log(f"  (e) {lines[-1]}")
+            log("      record: " + json.dumps({k: v for k, v in rec.items() if k != "trace"}))
+            out[f"{arch} {shape} {variant or ''}".strip()] = rec
+    report.setdefault("parallel", {})["dryrun"] = out
+    return out
+
+
+def run_parallel(report: dict, seed: int) -> dict:
+    """Phase 9d: (a)-(d) on a one-rank NCCL group, destroyed at the end;
+    then (e).  Returns the shapes kernel 8 was launched at by (b)."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    card = card_line()
+    check(not dist.is_initialized(), "a default process group is already open")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = run_mesh(report, card)
+        shapes = run_pctx_prefill(mesh, report, seed, card)
+        run_pctx_train(mesh, report, seed, card)
+        run_pctx_ssd(mesh, report, seed, card)
+    finally:
+        dist.destroy_process_group()
+    run_dryruns(report)
+    report["parallel"]["seconds"] = time.perf_counter() - t0
+    log(f"  ({report['parallel']['seconds']:.1f} s phase; {card})")
+    return shapes
+
+
 def session_config(scale: float, batch_size: int = 1024, model: str = "rgcn",
                    executor: str = "raf_spmd", fuse_epilogue: bool = True,
                    pipeline=None, learnable: bool = True, dp=None, autotune: bool = False):
@@ -3714,12 +4096,17 @@ def main(argv=None) -> int:
         run_lm_train(name, batch, seq, cut, report, args.seed)
     run_lm_train_fp32(report, args.seed)
     log(f"  ({time.perf_counter() - t0:.1f} s phase)")
+    log(f"== 9d the multi-device tooling (seed {args.seed}): a one-rank NCCL mesh and the "
+        "production mesh refused; granite's prefill, llama's training and mamba2's forward "
+        "under ParallelCtx; the meta-device dry run")
+    paths["granite-moe-1b-a400m pctx prefill"] = run_parallel(report, args.seed)
     order = [f"{m} {p}" for p in ("training", "serving") for m in ("rgcn", "rgat", "hgt")]
     order += ["rgcn raf training"] + [f"{m} unfused {p}" for p in ("training", "serving")
                                       for m in ("rgat", "hgt")]
     order += ["rgcn pipeline training", "hgt pipeline training"]
     order += ["rgcn dp training", "hgt dp training"]
     order += ["lm prefill + decode"] + [f"{name} prefill + decode" for name in LM_FAMILIES]
+    order += ["granite-moe-1b-a400m pctx prefill"]
     paths = {p: paths[p] for p in order}
 
     log("== 7 kernels at the shapes the training and serving paths launched them with")

@@ -1003,8 +1003,11 @@ class Heta:
         """Start (or return) the micro-batching
         :class:`~repro_torch.serve.server.EmbeddingServer` over the
         materialized store.  Flush policy / cache budget come from
-        ``ServeConfig`` (keyword overrides win).  ``close_serving()`` stops
-        it."""
+        ``ServeConfig`` (keyword overrides win).  The head is placed on
+        ``make_production_mesh`` when ``serve.production_mesh`` is set (a
+        256-rank default process group; ``repro_torch.launch.mesh.MeshError``
+        otherwise), else on the run's mesh (none: the port's shards share
+        one device).  ``close_serving()`` stops it."""
         if self._server is not None:
             return self._server
         self._require("embedding_store", "infer_all", "serve")
@@ -1012,9 +1015,11 @@ class Heta:
 
         scfg = self.config.serve
         if scfg.production_mesh:
-            raise NotImplementedError(
-                "serve.production_mesh: multi-GPU serving arrives with the "
-                "port's multi-GPU slice; the server runs on the session's device")
+            from repro_torch.launch.mesh import make_production_mesh
+
+            mesh = make_production_mesh(device_type=self.device.type)
+        else:
+            mesh = getattr(self.plan, "mesh", None)
         kw = dict(
             max_batch=scfg.max_batch, max_wait_ms=scfg.max_wait_ms,
             max_queue=scfg.max_queue, cache_mb=scfg.cache_mb,
@@ -1026,6 +1031,7 @@ class Heta:
             breaker_threshold=scfg.breaker_threshold,
             breaker_cooldown_ms=scfg.breaker_cooldown_ms,
             faults=self.fault_plan,
+            mesh=mesh,
         )
         kw.update(overrides)
         self._server = EmbeddingServer(self.embedding_store, **kw)

@@ -13,8 +13,23 @@ Decode attends one new token against a KV cache laid out ``[B, S, KV, hd]``
 in plain torch ops, as the reference does: its per-batch validity mask
 never reaches the kernel.  The cache is updated IN PLACE (a slice
 assignment into the caller's tensors), where the reference returns new
-arrays.  Sequence-parallel attention, the chunked einsum and ``pctx``
-belong to the reference's dry-run and sharding tooling and are not ported.
+arrays.
+
+Under a ``ParallelCtx`` (``repro_torch.models.transformer``), as in the
+reference:
+
+  * ``attn_chunk > 0`` runs :func:`_einsum_attention_chunked`, the
+    counterpart of ``_xla_attention_chunked``: an online softmax over key
+    chunks, so the ``[sq, sk]`` logits never exist whole.  A chunk that does
+    not divide ``sk`` runs the whole :func:`_einsum_attention`: that is the
+    reference's own rule, not a fallback of the port's.  ``use_kernel``
+    takes precedence over it, as ``use_pallas`` does there.
+  * ``sp_attention`` places q sharded along the sequence over the model
+    axis and k, v replicated across it (both batch-sharded over the data
+    axes): DTensor redistributions where the activations are DTensors (the
+    dry run), the identity for plain tensors on a one-device mesh, refused
+    for plain tensors on a larger one.  A DTensor never reaches kernel 8:
+    ``use_kernel=True`` with DTensor activations raises.
 """
 
 from __future__ import annotations
@@ -23,10 +38,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, he_init, rms_norm
+from repro_torch.models.layers import (apply_rope, constrain, grad_like, he_init, reduce_partial,
+                                      replicate_like, rms_norm, split_dim)
 
 __all__ = ["attn_params", "attention_block", "decode_attention_block", "CacheOverflowError"]
 
@@ -64,9 +81,9 @@ def _qkv(p: Dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor) -> 
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, H, hd)
-    k = k.reshape(b, s, KV, hd)
-    v = v.reshape(b, s, KV, hd)
+    q = split_dim(q, -1, (H, hd))
+    k = split_dim(k, -1, (KV, hd))
+    v = split_dim(v, -1, (KV, hd))
     if cfg.causal or cfg.rope_fraction > 0:
         q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
@@ -81,7 +98,7 @@ def _einsum_attention(
     b, sq, H, hd = q.shape
     KV = k.shape[2]
     g = H // KV
-    qg = q.reshape(b, sq, KV, g, hd)
+    qg = split_dim(q, 2, (KV, g))
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
     logits = logits * (1.0 / math.sqrt(hd))
     sk = k.shape[1]
@@ -97,10 +114,51 @@ def _einsum_attention(
         mask = mask[:, None, None]
     else:
         mask = mask[None, None, None]
-    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    logits = torch.where(replicate_like(mask, logits), logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, sq, H, hd)
+
+
+def _einsum_attention_chunked(q, k, v, causal: bool, window: Optional[int],
+                              chunk: int = 4096):
+    """Flash attention in torch ops: a loop over key chunks of ``chunk``
+    with an online softmax, so the ``[sq, sk]`` logits never exist whole
+    (the reference's ``_xla_attention_chunked``: the same masks, -1e30 for a
+    masked logit and as the running max's start, the same order of work).
+    A chunk that does not divide ``sk`` runs :func:`_einsum_attention`, as
+    there."""
+    b, sq, H, hd = q.shape
+    KV, sk = k.shape[2], k.shape[1]
+    g = H // KV
+    ck = min(chunk, sk)
+    if sk % ck:
+        return _einsum_attention(q, k, v, causal, window)
+    qg = split_dim(q, 2, (KV, g))
+    scale = 1.0 / math.sqrt(hd)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    m = l = acc = None
+    for j in range(sk // ck):
+        kb, vb = k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck]
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kb).float() * scale
+        kpos = j * ck + torch.arange(ck, device=q.device)[None, :]
+        mask = torch.ones((sq, ck), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        logits = torch.where(replicate_like(mask[None, None, None], logits), logits, -1e30)
+        if m is None:  # the running max starts at -1e30, the sums at 0
+            m = torch.full_like(logits[..., 0], -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        palpha = torch.exp(m - m_new)
+        probs = torch.exp(logits - m_new[..., None])
+        l = probs.sum(-1) if l is None else palpha * l + probs.sum(-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", probs.to(vb.dtype), vb)
+        acc = pv if acc is None else acc * palpha[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None].to(acc.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, H, hd)
 
 
 def attention_block(
@@ -115,22 +173,29 @@ def attention_block(
 ):
     """Pre-norm attention block with residual (prefill).  With
     ``return_kv`` also returns this block's ``(k, v)``, ``[b, s, KV, hd]``
-    after RoPE, for the decode cache."""
-    if pctx is not None:
-        raise NotImplementedError(
-            "pctx (sequence-parallel / chunked attention) belongs to the reference's "
-            "dry-run and sharding tooling, not ported (ROADMAP.md §1)")
+    after RoPE, for the decode cache.  ``pctx`` (a ``ParallelCtx``): see the
+    module note."""
     b, s, D = x.shape
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h, positions)
+    if pctx is not None and pctx.sp_attention:
+        dp, ma = pctx.dp_axes, pctx.model_axis
+        q = constrain(q, pctx.mesh, (dp, ma, None, None))
+        k = constrain(k, pctx.mesh, (dp, None, None, None))
+        v = constrain(v, pctx.mesh, (dp, None, None, None))
     if use_kernel:
+        if isinstance(q, DTensor):
+            raise TypeError("flash_attention takes plain tensors; DTensor activations "
+                            "(the dry run) run the einsum path: use_kernel=False")
         out = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=cfg.causal, window=window,
         ).transpose(1, 2)
+    elif pctx is not None and pctx.attn_chunk:
+        out = _einsum_attention_chunked(q, k, v, cfg.causal, window, chunk=pctx.attn_chunk)
     else:
         out = _einsum_attention(q, k, v, cfg.causal, window)
-    out = out.reshape(b, s, cfg.num_heads * cfg.hd) @ p["wo"]
+    out = reduce_partial(grad_like(out.reshape(b, s, cfg.num_heads * cfg.hd)) @ p["wo"])
     y = x + out
     if return_kv:
         return y, (k, v)
@@ -178,5 +243,5 @@ def decode_attention_block(
         valid = kpos <= pos
     valid = valid.expand(b, S)
     out = _einsum_attention(q, k_cache, v_cache, False, None, kv_len_mask=valid)
-    out = out.reshape(b, 1, cfg.num_heads * cfg.hd) @ p["wo"]
+    out = reduce_partial(out.reshape(b, 1, cfg.num_heads * cfg.hd) @ p["wo"])
     return x + out, k_cache, v_cache

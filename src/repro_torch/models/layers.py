@@ -8,16 +8,127 @@ rotation.  The initializers draw from an explicit ``torch.Generator``
 of the leaf's ``stack`` (its period and slot axes) at a time into a
 preallocated tensor of that type: the fp32 transient is one entry's size,
 never the whole leaf's (qwen3-moe-30b-a3b's stacked ``w1`` is 19 GB in
-bf16 and would be 39 GB in fp32).
+bf16 and would be 39 GB in fp32).  A leaf on the ``meta`` device is
+allocated and never drawn (``SHAPE_ONLY`` stands in for the generator):
+``torch.Generator`` has no ``meta`` device, and the dry run needs shapes
+only.
+
+The DTensor helpers are the port's own.  Under the dry run
+(``repro_torch.launch.dryrun``) the activations are DTensors: a plain
+tensor made inside the model (positions, masks, RoPE tables) is lifted to
+``Replicate()`` on their mesh before an op mixes the two
+(``replicate_like``); a product's pending sums are reduced at the end of
+each block, as tensor parallelism reduces them (``reduce_partial``); a head
+count the model axis does not divide is gathered before the split
+(``split_dim``) and its gradient on the way back (``grad_like``);
+``constrain`` is ``with_sharding_constraint``'s counterpart.  On plain
+tensors each is the identity (``constrain`` on a one-device mesh).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+import types
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-__all__ = ["rms_norm", "apply_rope", "rope_frequencies", "he_init", "embed_init"]
+__all__ = ["rms_norm", "apply_rope", "rope_frequencies", "he_init", "embed_init",
+           "SHAPE_ONLY", "replicate_like", "reduce_partial", "split_dim", "grad_like", "mesh_axes",
+           "constrain"]
+
+# stands in for a generator on the meta device: its leaves are allocated, never drawn
+SHAPE_ONLY = types.SimpleNamespace(device=torch.device("meta"))
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or of
+    ``repro_torch.launch.mesh.AbstractMesh``, in mesh order."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    sizes = mesh.shape
+    if isinstance(sizes, dict):
+        return {a: int(sizes[a]) for a in names}
+    return dict(zip(names, (int(n) for n in sizes)))
+
+
+def constrain(t: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
+    """The counterpart of ``jax.lax.with_sharding_constraint(t, P(*spec))``:
+    a DTensor is redistributed so that each mesh axis a dim of ``spec`` names
+    (alone or in a tuple, in mesh order) shards that dim and every other
+    axis replicates it.  A plain tensor is taken as it is on a mesh of one
+    device, and refused on a larger one: there is nothing to place it with."""
+    if not isinstance(t, DTensor):
+        n = math.prod(mesh_axes(mesh).values())
+        if n > 1:
+            raise ValueError(f"a sharding constraint over a mesh of {n} devices needs "
+                             "DTensor activations; got a plain tensor")
+        return t
+    dm = t.device_mesh
+    placements = []
+    for name in dm.mesh_dim_names:
+        dims = [i for i, ax in enumerate(spec)
+                if ax == name or (isinstance(ax, tuple) and name in ax)]
+        placements.append(Shard(dims[0]) if dims else Replicate())
+    return t.redistribute(dm, placements)
+
+
+def reduce_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor whose placements hold pending sums (a vocab-sharded
+    embedding's lookup) with the sums done (an all-reduce); anything else
+    as it is."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        dm, pl = t.device_mesh, t.placements
+        masked = [p for p in pl if p.is_partial() and type(p) is not Partial]
+        if masked:
+            # the lookup's masked partial is a plain sum of its local rows
+            # (zeros where a rank holds no row); taken as one, so that its
+            # gradient needs no conversion between partial kinds.  Its mask
+            # is released, as reducing it would
+            for p in masked:
+                p.mask_buffer.release_mask()
+            t = DTensor.from_local(t.to_local(), dm,
+                                   [Partial() if p.is_partial() else p for p in pl],
+                                   run_check=False, shape=t.shape, stride=t.stride())
+        return t.redistribute(dm, [Replicate() if p.is_partial() else p for p in pl])
+    return t
+
+
+def split_dim(t: torch.Tensor, dim: int, sizes: Tuple[int, ...]) -> torch.Tensor:
+    """``t`` with its dim ``dim`` split into ``sizes`` (a reshape).  A
+    DTensor sharded on that dim over mesh dims that do not divide
+    ``sizes[0]`` (24 heads, or 4 kv groups, over a model axis of 16) is
+    gathered on those mesh dims first: DTensor cannot split an unevenly
+    sharded dim, where GSPMD pads."""
+    dim = dim % t.dim()
+    if isinstance(t, DTensor):
+        dm = t.device_mesh
+        on = [i for i, p in enumerate(t.placements) if p.is_shard(dim)]
+        if on and sizes[0] % math.prod(dm.size(i) for i in on):
+            t = t.redistribute(dm, [Replicate() if i in on else p
+                                    for i, p in enumerate(t.placements)])
+    return t.reshape(t.shape[:dim] + tuple(sizes) + t.shape[dim + 1:])
+
+
+def grad_like(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, but a DTensor's gradient is redistributed to ``t``'s own
+    placements on its way back (``from_local``'s backward does that), so
+    that the backward of a reshape before it finds the gradient as
+    splittable as the forward found ``t``; a plain tensor as it is."""
+    if isinstance(t, DTensor):
+        return DTensor.from_local(t.to_local(), t.device_mesh, t.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return t
+
+
+def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` as a DTensor replicated on ``like``'s mesh when ``like`` is a
+    DTensor (``t`` must then hold the same values on every rank); else
+    ``t`` itself."""
+    if isinstance(like, DTensor) and not isinstance(t, DTensor):
+        mesh = like.device_mesh
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -48,8 +159,8 @@ def apply_rope(
     half = rot // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     ang = positions[..., None].to(torch.float32) * freqs  # [b, s, half]
-    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    cos = replicate_like(torch.cos(ang)[:, :, None, :].to(x.dtype), x)
+    sin = replicate_like(torch.sin(ang)[:, :, None, :].to(x.dtype), x)
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr[..., :half], xr[..., half:]
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -60,8 +171,10 @@ def _draw(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype, std:
           stack: Tuple[int, ...]) -> torch.Tensor:
     """N(0, std^2) of shape ``stack + shape`` in ``dtype`` on ``gen``'s
     device, drawn in fp32 one stack entry at a time (a leaf with no stack is
-    one entry)."""
+    one entry); with ``SHAPE_ONLY``, allocated on ``meta`` and not drawn."""
     out = torch.empty(stack + shape, dtype=dtype, device=gen.device)
+    if gen is SHAPE_ONLY:
+        return out
     for entry in out.view((-1,) + shape):
         draw = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
         entry.copy_(draw * std)

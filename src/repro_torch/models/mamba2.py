@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import he_init, rms_norm
+from repro_torch.models.layers import he_init, reduce_partial, replicate_like, rms_norm
 
 __all__ = ["mamba_params", "mamba_block", "decode_mamba_block"]
 
@@ -102,10 +102,12 @@ def _ssd_chunked(
     # digits and the card (whose cumsum adds in another order) left the
     # CPU by 1e-5 in every decay.  Masked before exp, as in the reference:
     # the upper triangle must not reach exp() as anything but -inf.
-    below = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device), -1)
+    below = replicate_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device), -1),
+                           x)
     seg = torch.cumsum(torch.where(below[None, None, :, :, None], dA[:, :, :, None, :], 0.0),
                        dim=2)  # [b, nc, Q, Q, nh]: seg[i, j] = Σ_{j<k≤i} dA_k
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, None, :, :, None]
+    tri = replicate_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device)),
+                         x)[None, None, :, :, None]
     decay = torch.exp(torch.where(tri, seg, float("-inf"))).to(cd)
     cb = torch.einsum("bcin,bcjn->bcij", Cb, Bb)[..., None]  # [b,nc,Q,Q,1]
     scores = cb * decay * dtb[:, :, None, :, :].to(cd)
@@ -119,7 +121,7 @@ def _ssd_chunked(
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(last[:, :, 0, :])  # [b, nc, nh]
-    H = torch.zeros((b, nh, hp, N), dtype=cd, device=x.device)
+    H = replicate_like(torch.zeros((b, nh, hp, N), dtype=cd, device=x.device), x)
     entering = []
     for c in range(nc):
         entering.append(H)
@@ -150,7 +152,7 @@ def mamba_block(p: Dict, cfg: ArchConfig, x: torch.Tensor, chunk: int = 128,
     y = y + (p["D_skip"][:, None].to(compute_dtype) * xh.to(compute_dtype)).to(y.dtype)
     y = y.reshape(b, s, di)
     y = rms_norm(y, p["gnorm"], cfg.norm_eps) * F.silu(z)
-    return x + y @ p["wo"]
+    return x + reduce_partial(y @ p["wo"])
 
 
 def decode_mamba_block(
@@ -183,4 +185,4 @@ def decode_mamba_block(
     y = rms_norm(y, p["gnorm"], cfg.norm_eps) * F.silu(z)
     conv_state.copy_(window[:, 1:])
     ssm_state.copy_(new_ssm)
-    return x + (y @ p["wo"])[:, None], conv_state, ssm_state
+    return x + reduce_partial(y @ p["wo"])[:, None], conv_state, ssm_state

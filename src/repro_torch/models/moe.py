@@ -16,22 +16,41 @@ Where the port differs:
     contributions, and so the bf16 result, would change from run to run.
     The port computes the same function as a gather: each token sums its
     kept picks ``w[t, k] · ye[idx[t, k], pos[t, k]]`` over ``k`` in order, in
-    ``ye``'s type; a token with no kept pick gets 0.
-  * ``moe_block_ep`` (expert parallelism over a device mesh) belongs to the
-    reference's multi-device tooling and is not ported (ROADMAP.md §A.5).
+    ``ye``'s type; a token with no kept pick gets 0.  ``moe_block_ep`` combines
+    the same way, so on one rank it is ``moe_block`` bit for bit.
+  * **``moe_block_ep``** is the body of the reference's ``shard_map`` run on
+    each rank's own shard: x ``[b/dp, s/mp, D]`` and the experts ``[E/mp,
+    D, F]``, routed locally with the local capacity ``_capacity(cfg,
+    T_local)``.  The reference's two tiled ``all_to_all`` are
+    ``all_to_all_single`` over the model axis's process group, through
+    ``torch.distributed._functional_collectives.all_to_all_single_autograd``,
+    which carries gradients (``torch.distributed.nn.functional``'s is
+    deprecated in favour of it), or its plain form where no gradient is
+    taken (the autograd op has no kernel under ``inference_mode``).  It
+    takes DTensors (the counterpart of the reference's global arrays: each
+    rank's shard is taken with ``to_local`` after placing x as ``(dp,
+    model, None)`` and the experts as ``(model, None, None)``, and the
+    result is returned in x's own placements, the sequence gathered where
+    x did not shard it), or plain tensors on a mesh of one device, where
+    the exchange runs over a group of one (the identity) or, on a mesh with
+    no process group, is left out.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import he_init, rms_norm
+from repro_torch.models.layers import (constrain, he_init, mesh_axes, reduce_partial,
+                                      replicate_like, rms_norm)
 
-__all__ = ["moe_params", "moe_block", "mlp_params", "mlp_block", "router_stats"]
+__all__ = ["moe_params", "moe_block", "moe_block_ep", "mlp_params", "mlp_block",
+           "router_stats"]
 
 
 def mlp_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
@@ -47,7 +66,7 @@ def mlp_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
 
 def mlp_block(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    return x + (F.silu(h @ p["w1"]) * (h @ p["w3"])) @ p["w2"]
+    return x + reduce_partial((F.silu(h @ p["w1"]) * (h @ p["w3"])) @ p["w2"])
 
 
 def moe_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
@@ -80,16 +99,12 @@ def _capacity(cfg: ArchConfig, T: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
-def moe_block(p: Dict, cfg: ArchConfig, x: torch.Tensor, return_aux: bool = False):
-    """x [b, s, D] -> [b, s, D] with top-k expert FFNs (dropping at
-    capacity).  With ``return_aux`` also ``{"aux_loss", "dropped"}``."""
-    b, s, D = x.shape
-    T = b * s
+def _dispatch(cfg: ArchConfig, h: torch.Tensor, router: torch.Tensor, C: int):
+    """Route ``h`` [T, D] and lay the picks into ``[E, C]`` capacity slots:
+    ``(xe [E, C, D], idx, weights, probs, pos, keep, slot_used)``."""
+    T = h.shape[0]
     E, K = cfg.moe_experts, cfg.moe_topk
-    C = _capacity(cfg, T)
-    h = rms_norm(x, p["norm"], cfg.norm_eps).reshape(T, D)
-
-    idx, weights, probs = _route(cfg, h, p["router"])  # [T, K]
+    idx, weights, probs = _route(cfg, h, router)  # [T, K]
 
     # rank of each (token, k) pick among the picks of its expert, in the
     # flattened [T·K] row-major order: this order decides which picks drop.
@@ -105,30 +120,116 @@ def moe_block(p: Dict, cfg: ArchConfig, x: torch.Tensor, return_aux: bool = Fals
     # column C, which is sliced off
     slot_e = idx.reshape(-1)
     slot_c = torch.where(keep, pos, C).reshape(-1)
-    tok = torch.arange(T, device=x.device).repeat_interleave(K)
-    gather_idx = torch.zeros((E, C + 1), dtype=torch.long, device=x.device)
+    tok = replicate_like(torch.arange(T, device=h.device).repeat_interleave(K), h)
+    gather_idx = replicate_like(torch.zeros((E, C + 1), dtype=torch.long, device=h.device), h)
     gather_idx[slot_e, slot_c] = tok
-    slot_used = torch.zeros((E, C + 1), dtype=torch.bool, device=x.device)
+    slot_used = replicate_like(torch.zeros((E, C + 1), dtype=torch.bool, device=h.device), h)
     slot_used[slot_e, slot_c] = keep.reshape(-1)
     gather_idx, slot_used = gather_idx[:, :C], slot_used[:, :C]
 
     xe = h[gather_idx] * slot_used[..., None].to(h.dtype)  # [E, C, D]
-    act = F.silu(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"])
-    ye = torch.bmm(act, p["w2"])  # [E, C, D]
+    return xe, idx, weights, probs, pos, keep, slot_used
 
-    # combine: each token gathers its kept picks, summed over k in order
+
+def _experts(xe: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    act = F.silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3)
+    return torch.bmm(act, w2)
+
+
+def _combine(ye: torch.Tensor, idx, weights, pos, keep) -> torch.Tensor:
+    """Each token gathers its kept picks from ``ye`` [E, C, D], weighted,
+    summed over k in order."""
     w = torch.where(keep, weights, 0.0).to(ye.dtype)
     picked = ye[idx, torch.where(keep, pos, 0)]  # [T, K, D]
     out = picked[:, 0] * w[:, 0, None]
-    for k in range(1, K):
+    for k in range(1, idx.shape[1]):
         out = out + picked[:, k] * w[:, k, None]
-    y = x + out.reshape(b, s, D)
+    return out
+
+
+def moe_block(p: Dict, cfg: ArchConfig, x: torch.Tensor, return_aux: bool = False):
+    """x [b, s, D] -> [b, s, D] with top-k expert FFNs (dropping at
+    capacity).  With ``return_aux`` also ``{"aux_loss", "dropped"}``."""
+    b, s, D = x.shape
+    T = b * s
+    E = cfg.moe_experts
+    C = _capacity(cfg, T)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).reshape(T, D)
+    xe, idx, weights, probs, pos, keep, slot_used = _dispatch(cfg, h, p["router"], C)
+    ye = _experts(xe, p["w1"], p["w3"], p["w2"])  # [E, C, D]
+    y = x + _combine(ye, idx, weights, pos, keep).reshape(b, s, D)
     if return_aux:
         # load-balance auxiliaries (Switch-style): fraction per expert
         me = probs.mean(0)
         ce = F.one_hot(idx[:, 0], E).float().mean(0)
         aux = E * torch.sum(me * ce)
         return y, {"aux_loss": aux, "dropped": 1.0 - slot_used.float().mean()}
+    return y
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s dim 0 in equal chunks, chunk i to group rank i; the chunks
+    received, in source order, along dim 0.  With grad, the collective that
+    carries gradients; without (serving runs under ``inference_mode``, where
+    that one has no kernel), the plain functional one."""
+    if group is None:
+        return t
+    from torch.distributed import _functional_collectives as funcol
+
+    if torch.is_grad_enabled():
+        return funcol.all_to_all_single_autograd(t.contiguous(), None, None, group)
+    return funcol.wait_tensor(funcol.all_to_all_single(t.contiguous(), None, None, group))
+
+
+def moe_block_ep(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh, dp_axes,
+                 model_axis: str = "model") -> torch.Tensor:
+    """Expert-parallel MoE — Heta's RAF paradigm applied to experts
+    (DESIGN.md §4): each model shard owns E/mp experts' parameters, tokens
+    are routed locally per shard (capacity from the local token count),
+    dispatched expert-major by one all-to-all, transformed where their
+    expert's weights live, and returned by a second.  See the module note
+    for what it takes and returns."""
+    E = cfg.moe_experts
+    mp = mesh_axes(mesh)[model_axis]
+    if E % mp:
+        raise ValueError(f"moe_block_ep: {E} experts do not split over a model axis of {mp}")
+    spec_x, spec_w = (dp_axes, model_axis, None), (model_axis, None, None)
+    if isinstance(x, DTensor):
+        dm = x.device_mesh
+        xs = constrain(x, dm, spec_x)
+        placements = xs.placements
+        xs = xs.to_local()
+        w1, w3, w2 = (constrain(p[k], dm, spec_w).to_local() for k in ("w1", "w3", "w2"))
+        router, norm_w = (constrain(p[k], dm, (None,) * p[k].dim()).to_local()
+                          for k in ("router", "norm"))
+        group = dm.get_group(model_axis)
+    else:
+        n = math.prod(mesh_axes(mesh).values())
+        if n > 1:
+            raise ValueError(f"moe_block_ep over a mesh of {n} devices takes DTensors; "
+                             "got plain tensors")
+        xs, w1, w3, w2, router, norm_w = x, p["w1"], p["w3"], p["w2"], p["router"], p["norm"]
+        group = mesh.get_group(model_axis) if hasattr(mesh, "get_group") else None
+
+    b, s, D = xs.shape
+    T = b * s
+    C = _capacity(cfg, T)
+    h = rms_norm(xs, norm_w, cfg.norm_eps).reshape(T, D)
+    xe, idx, weights, _, pos, keep, _ = _dispatch(cfg, h, router, C)
+    # dispatch: expert-major exchange (RAF: compute where the params live);
+    # [mp (source), E/mp, C, D] -> [E/mp, mp·C, D]
+    xe = _all_to_all(xe, group).reshape(mp, E // mp, C, D).transpose(0, 1)
+    ye = _experts(xe.reshape(E // mp, mp * C, D), w1, w3, w2)
+    # return the partial results to the token owners: [E, C, D]
+    ye = ye.reshape(E // mp, mp, C, D).transpose(0, 1)
+    ye = _all_to_all(ye, group).reshape(E, C, D)
+    y = xs + _combine(ye, idx, weights, pos, keep).reshape(b, s, D)
+    if isinstance(x, DTensor):
+        # back in x's own placements (gathering the sequence, where GSPMD
+        # re-gathers it for the next block)
+        y = DTensor.from_local(y, x.device_mesh, placements, run_check=False,
+                               shape=x.shape, stride=x.stride())
+        return y.redistribute(x.device_mesh, x.placements)
     return y
 
 

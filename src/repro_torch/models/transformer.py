@@ -18,6 +18,8 @@ Entry points:
     cache updated in place.
 
 Serving (``forward``, prefill, decode) runs under ``torch.inference_mode()``
+(``torch.no_grad()`` where the parameters are DTensors, which inference
+tensors cannot be)
 and reaches the flash-attention kernel by default.  Training differentiates
 a forward of its own (``_train_logits``) through the einsum attention path
 (``use_kernel=False``, as the reference trains on its XLA path,
@@ -43,28 +45,53 @@ frontend_dim]`` (its frontend is a stub: precomputed embeddings through
 ``frontend_proj``, put before the text; its loss scores text positions
 only); the audio model takes ``{frames}`` ``[b, s, frontend_dim]`` and its
 loss takes no shift.  Numpy or tensors; they are moved to the parameters'
-device.  ``ParallelCtx`` waits for a later slice (ROADMAP.md §A.5).
+device (DTensors are taken as they are).
+
+``ParallelCtx`` is the reference's, field for field.  ``forward``,
+``loss_fn`` and ``make_prefill_step`` take it as ``pctx=`` and thread it as
+the reference does: ``constrain_activations`` pins the residual stream to
+``(dp, None, None)`` before every block (a DTensor redistribution; plain
+tensors pass on a one-device mesh), ``attn_chunk`` and ``sp_attention``
+reach ``attention_block``, ``moe="expert_parallel"`` selects
+``moe_block_ep``, ``ssd_chunk`` and ``ssd_bf16`` reach ``mamba_block`` (not
+the prefill's Mamba blocks, which the reference runs at its default chunk
+in fp32 whatever the context), and ``remat_policy="dots"`` keeps the
+reference's ``dots_with_no_batch_dims_saveable``: each period is
+checkpointed with a selective policy that saves the outputs of ``aten.mm``
+and ``aten.addmm`` (the products with no batch dimension) and recomputes
+every other op, ``bmm`` and the einsums with a batch dimension included.
+``"full"`` and ``"none"`` recompute everything, as the reference's
+``forward`` does under ``remat`` (only ``"dots"`` changes its policy).
+``make_train_step`` takes no ``pctx``, as the reference's; a step under one
+is ``loss_fn(..., pctx=pctx)``'s value and gradient, then AdamW (the dry
+run builds it so).  Under ``init_params(device="meta")`` nothing is drawn:
+the leaves are allocated on the meta device (the dry run's abstract state).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import attention_block, attn_params, decode_attention_block
-from repro_torch.models.layers import embed_init, he_init, rms_norm
+from repro_torch.models.layers import (SHAPE_ONLY, constrain, embed_init, he_init,
+                                      reduce_partial, rms_norm)
 from repro_torch.models.mamba2 import (_causal_conv, _ssd_chunked, decode_mamba_block,
                                        mamba_block, mamba_params)
-from repro_torch.models.moe import mlp_block, mlp_params, moe_block, moe_params
+from repro_torch.models.moe import mlp_block, mlp_params, moe_block, moe_block_ep, moe_params
 from repro_torch.optim.adam import AdamConfig, adam_update, adam_update_, tree_map
 
 __all__ = [
+    "ParallelCtx",
     "init_params",
     "forward",
     "loss_fn",
@@ -74,6 +101,34 @@ __all__ = [
     "make_serve_step",
     "make_prefill_step",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Optional explicit-parallelism context (the reference's, field for
+    field; see the module note).  ``mesh`` is a ``DeviceMesh`` (or, where
+    no collective runs, ``repro_torch.launch.mesh.AbstractMesh``);
+    ``moe='expert_parallel'`` switches MoE blocks to ``moe_block_ep``."""
+
+    mesh: object
+    dp_axes: tuple
+    model_axis: str = "model"
+    moe: str = "gspmd"  # gspmd | expert_parallel
+    sp_attention: bool = False  # sequence-parallel attention
+    attn_chunk: int = 0  # >0: chunked (flash-style) einsum attention
+    ssd_chunk: int = 128  # SSD chunk length
+    ssd_bf16: bool = False  # mixed-precision SSD
+    remat_policy: str = "full"  # full | dots | none
+    constrain_activations: bool = False  # pin residual stream to (dp, None, None)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the products with no batch
+    dimension, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -111,11 +166,19 @@ def _slot_rows(cfg: ArchConfig, prefill: bool = False) -> List[Tuple]:
     return rows
 
 
+def _serving(params: Dict):
+    """The context a serving step runs in: ``inference_mode``, or
+    ``no_grad`` for DTensor parameters (the dry run)."""
+    return torch.no_grad() if isinstance(params["head"], DTensor) else torch.inference_mode()
+
+
 def _device(params: Dict) -> torch.device:
     return params["head"].device
 
 
 def _tokens(params: Dict, tokens) -> torch.Tensor:
+    if isinstance(tokens, DTensor):
+        return tokens.to(torch.long)
     return torch.as_tensor(tokens, dtype=torch.long, device=_device(params))
 
 
@@ -123,11 +186,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict:
     """Parameters of ``cfg`` in its dtype on ``device`` (``None``: the
     GPU), drawn from one generator seeded with ``seed`` on that device,
     leaf by leaf in the reference's key order (attention, Mamba, MLP, MoE,
-    embedding (absent for audio), head, frontend projection)."""
+    embedding (absent for audio), head, frontend projection).  On
+    ``device="meta"`` the leaves are allocated and nothing is drawn."""
     device = resolve_device(device)
     dtype = _dtype(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    if device.type == "meta":
+        gen = SHAPE_ONLY
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     n_attn = len(cfg.attn_slots)
     n_mamba = len(cfg.mamba_slots)
     n_moe = len(cfg.moe_slots)
@@ -155,14 +222,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict:
     return params
 
 
+def _on(a, device) -> torch.Tensor:
+    return a if isinstance(a, DTensor) else torch.as_tensor(a, device=device)
+
+
 def _embed_inputs(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
     dev = _device(params)
     if cfg.frontend == "audio":
-        frames = torch.as_tensor(batch["frames"], device=dev)
+        frames = _on(batch["frames"], dev)
         return frames.to(_dtype(cfg)) @ params["frontend_proj"]
-    x = params["embed"][_tokens(params, batch["tokens"])]
+    x = reduce_partial(F.embedding(_tokens(params, batch["tokens"]), params["embed"]))
     if cfg.frontend == "vision":
-        patches = torch.as_tensor(batch["patch_embeds"], device=dev)
+        patches = _on(batch["patch_embeds"], dev)
         x = torch.cat([patches.to(x.dtype) @ params["frontend_proj"], x], dim=1)
     return x
 
@@ -186,44 +257,59 @@ def _mamba_prefill(p: Dict, cfg: ArchConfig, x: torch.Tensor):
     y = rms_norm(y, p["gnorm"], cfg.norm_eps) * F.silu(z)
     # fewer than k-1 prompt tokens give a shorter state, as in the reference
     conv_state = xproj[:, -(cfg.ssm_conv - 1):, :]
-    return x + y @ p["wo"], (conv_state, H)
+    return x + reduce_partial(y @ p["wo"]), (conv_state, H)
 
 
 def _period(cfg: ArchConfig, take, per: int, rows: List[Tuple], x: torch.Tensor,
             positions: torch.Tensor, window: Optional[int], use_kernel: bool,
-            cache_out: Optional[Dict] = None) -> torch.Tensor:
+            cache_out: Optional[Dict] = None,
+            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """One period's blocks over ``x``; ``take(kind, per, row)`` gives a
     block's parameters.  With ``cache_out`` (prefill), each attention
     block's (k, v) is written into ``cache_out["k"/"v"]`` and each Mamba
-    block's states into ``cache_out["conv"/"ssm"]``, at ``[per, row]``."""
+    block's states into ``cache_out["conv"/"ssm"]``, at ``[per, row]``.
+    ``pctx``: see the module note."""
     prefill = cache_out is not None
     for mixer, m, ffn, f in rows:
+        if pctx is not None and pctx.constrain_activations:
+            # keep the residual stream batch-sharded (the reference's
+            # with_sharding_constraint before every block)
+            x = constrain(x, pctx.mesh, (pctx.dp_axes, None, None))
         p = take(mixer, per, m)
         if mixer == "attn" and not prefill:
-            x = attention_block(p, cfg, x, positions, window=window, use_kernel=use_kernel)
+            x = attention_block(p, cfg, x, positions, window=window, use_kernel=use_kernel,
+                                pctx=pctx)
         elif mixer == "attn":
             x, (k, v) = attention_block(p, cfg, x, positions, window=window,
-                                        use_kernel=use_kernel, return_kv=True)
+                                        use_kernel=use_kernel, return_kv=True, pctx=pctx)
             cache_out["k"][per, m] = k
             cache_out["v"][per, m] = v
         elif not prefill:
-            x = mamba_block(p, cfg, x)
+            if pctx is None:
+                x = mamba_block(p, cfg, x)
+            else:
+                x = mamba_block(p, cfg, x, chunk=pctx.ssd_chunk,
+                                compute_dtype=torch.bfloat16 if pctx.ssd_bf16 else torch.float32)
         else:
             x, (conv, ssm) = _mamba_prefill(p, cfg, x)
             cache_out["conv"][per, m] = conv
             cache_out["ssm"][per, m] = ssm
-        if ffn is not None:
+        if ffn == "moe" and pctx is not None and pctx.moe == "expert_parallel":
+            x = moe_block_ep(take(ffn, per, f), cfg, x, pctx.mesh, pctx.dp_axes,
+                             pctx.model_axis)
+        elif ffn is not None:
             x = (moe_block if ffn == "moe" else mlp_block)(take(ffn, per, f), cfg, x)
     return x
 
 
 def _layers(cfg: ArchConfig, params: Dict, x: torch.Tensor, positions: torch.Tensor,
-            window: Optional[int], use_kernel: bool, cache_out: Optional[Dict] = None):
+            window: Optional[int], use_kernel: bool, cache_out: Optional[Dict] = None,
+            pctx: Optional[ParallelCtx] = None):
     """Every period's blocks over ``x`` (see ``_period``)."""
     rows = _slot_rows(cfg, prefill=cache_out is not None)
     take = partial(_take, params["blocks"])
     for per in range(cfg.n_periods):
-        x = _period(cfg, take, per, rows, x, positions, window, use_kernel, cache_out)
+        x = _period(cfg, take, per, rows, x, positions, window, use_kernel, cache_out, pctx)
     return x
 
 
@@ -233,13 +319,14 @@ def forward(
     batch: Dict,
     window: Optional[int] = None,
     use_kernel: bool = True,
+    pctx: Optional[ParallelCtx] = None,
 ) -> torch.Tensor:
     """``batch`` (see the module note) -> logits ``[b, s, vocab]``."""
-    with torch.inference_mode():
+    with _serving(params):
         x = _embed_inputs(cfg, params, batch)
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-        x = _layers(cfg, params, x, positions, window, use_kernel)
+        x = _layers(cfg, params, x, positions, window, use_kernel, pctx=pctx)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x @ params["head"]
 
@@ -250,12 +337,14 @@ def forward(
 
 
 def _train_logits(cfg: ArchConfig, params: Dict, batch: Dict, window: Optional[int],
-                  use_kernel: bool, remat: bool) -> torch.Tensor:
+                  use_kernel: bool, remat: bool,
+                  pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """The forward to logits with grad: ``_embed_inputs`` -> periods (each
     under ``checkpoint`` with ``remat``) -> final norm -> head.  Every stack
     entry of a block leaf reaches its period as a view from one ``unbind``
     of the leaf, so the backward stacks each leaf's gradient once (indexing
-    each entry instead builds a zero-filled leaf-sized gradient per entry)."""
+    each entry instead builds a zero-filled leaf-sized gradient per entry).
+    ``pctx.remat_policy == "dots"`` saves the products with no batch dim."""
     x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     entries = {kind: {leaf: a.flatten(0, 1).unbind(0) for leaf, a in blk.items()}
@@ -266,23 +355,27 @@ def _train_logits(cfg: ArchConfig, params: Dict, batch: Dict, window: Optional[i
         return {leaf: views[per * slots[kind] + row] for leaf, views in entries[kind].items()}
 
     rows = _slot_rows(cfg)
+    kw = {}
+    if pctx is not None and pctx.remat_policy == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_saveable)
     for per in range(cfg.n_periods):
         if remat:
             x = checkpoint(_period, cfg, take, per, rows, x, positions, window, use_kernel,
-                           use_reentrant=False)
+                           None, pctx, use_reentrant=False, **kw)
         else:
-            x = _period(cfg, take, per, rows, x, positions, window, use_kernel)
+            x = _period(cfg, take, per, rows, x, positions, window, use_kernel, pctx=pctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["head"]
 
 
 def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, use_kernel: bool = False,
-            remat: bool = True, window: Optional[int] = None) -> torch.Tensor:
+            remat: bool = True, window: Optional[int] = None,
+            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Mean next-token negative log-likelihood of ``batch["labels"]``, with
     grad: the vision model scores its text positions only, the audio encoder
     takes no shift, ``log_softmax`` runs in float32."""
-    logits = _train_logits(cfg, params, batch, window, use_kernel, remat)
-    labels = torch.as_tensor(batch["labels"], dtype=torch.long, device=logits.device)
+    logits = _train_logits(cfg, params, batch, window, use_kernel, remat, pctx)
+    labels = _on(batch["labels"], logits.device).to(torch.long)
     if cfg.frontend == "vision":
         logits = logits[:, cfg.frontend_tokens:]  # loss on text positions only
     if cfg.is_decoder and cfg.frontend != "audio":
@@ -383,7 +476,7 @@ def make_serve_step(cfg: ArchConfig, window: Optional[int] = None):
     rows = _slot_rows(cfg)
 
     def step(params: Dict, cache: Dict, token, pos):
-        with torch.inference_mode():
+        with _serving(params):
             x = params["embed"][_tokens(params, token)]  # [B, 1, D]
             blocks = params["blocks"]
             for per in range(cfg.n_periods):
@@ -406,11 +499,13 @@ def make_serve_step(cfg: ArchConfig, window: Optional[int] = None):
     return step
 
 
-def make_prefill_step(cfg: ArchConfig, use_kernel: bool = True):
+def make_prefill_step(cfg: ArchConfig, use_kernel: bool = True,
+                      pctx: Optional[ParallelCtx] = None):
     """``(params, batch) -> (last-position logits [b, 1, vocab], decode
     cache)``; the cache holds the prompt's ``s`` positions (with a vision
     frontend, the patches' and then the text's).  Encoder-only: ``(forward
-    logits [b, s, vocab], {})``, there being no cache."""
+    logits [b, s, vocab], {})``, there being no cache (and, as in the
+    reference, no ``pctx``).  ``pctx``: see the module note."""
     if not cfg.is_decoder:
         def enc_step(params: Dict, batch: Dict):
             return forward(cfg, params, batch, use_kernel=use_kernel), {}
@@ -418,7 +513,7 @@ def make_prefill_step(cfg: ArchConfig, use_kernel: bool = True):
         return enc_step
 
     def step(params: Dict, batch: Dict):
-        with torch.inference_mode():
+        with _serving(params):
             x = _embed_inputs(cfg, params, batch)
             b, s, _ = x.shape
             positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -431,7 +526,7 @@ def make_prefill_step(cfg: ArchConfig, use_kernel: bool = True):
                 cache["conv"] = x.new_empty((P, n, b, min(s, cfg.ssm_conv - 1), cfg.d_inner))
                 cache["ssm"] = x.new_empty((P, n, b, cfg.ssm_heads, cfg.ssm_head_dim,
                                             cfg.ssm_state), dtype=torch.float32)
-            x = _layers(cfg, params, x, positions, None, use_kernel, cache_out=cache)
+            x = _layers(cfg, params, x, positions, None, use_kernel, cache_out=cache, pctx=pctx)
             x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
             return x @ params["head"], cache
 

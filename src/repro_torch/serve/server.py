@@ -306,6 +306,7 @@ class EmbeddingServer:
         breaker_threshold: int = 3,
         breaker_cooldown_ms: float = 1000.0,
         faults=None,
+        mesh=None,
     ):
         self.store = store
         # degradation policy (DESIGN.md §12) + deterministic fault plan
@@ -345,6 +346,15 @@ class EmbeddingServer:
         }
         w, b = store.head_on_device()
         self._score = lambda e: torch.relu(e) @ w + b
+        if mesh is not None:
+            # the head replicated on the mesh (a DeviceMesh over the store's
+            # device type); each flush's rows join it as a replicated DTensor
+            from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+            rep = [Replicate()] * mesh.ndim
+            w, b = distribute_tensor(w, mesh, rep), distribute_tensor(b, mesh, rep)
+            self._score = lambda e: (torch.relu(DTensor.from_local(e, mesh, rep, run_check=False))
+                                     @ w + b).to_local()
         self._latencies: deque = deque(maxlen=100_000)
         self._count = 0
         self._stats_lock = threading.Lock()

@@ -1653,3 +1653,110 @@ def test_cuda_table_layouts_reach_the_launch(cuda_device, table_path, model, fus
     autotune.save_table(_table_of(bad), table_path)
     with pytest.raises(ValueError, match="cannot launch"):
         _layouts_run(model, fuse, KernelConfig(fuse_epilogue=fuse, autotune=True), cuda_device)
+
+
+# --------------------------------------------------------------------------
+# the multi-device tooling on one card (chip_smoke.py phase 9d (a)-(c))
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group (NCCL takes one rank per GPU) and its (1, 1)
+    mesh on the card; destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL and the hand-written kernels have no CPU mode")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if dist.is_initialized():
+        pytest.fail("a default process group is already open")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    yield make_test_mesh(1, 1, device_type="cuda")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_production_mesh_refused_and_server_on_the_mesh(cuda_device, nccl_mesh):
+    """make_production_mesh and serve(production_mesh=True) raise MeshError
+    (world size 1 against 256); an EmbeddingServer with its head on the
+    one-rank mesh answers bit for bit as one with no mesh."""
+    from repro_torch.api import DataConfig, Heta, HetaConfig
+    from repro_torch.launch.mesh import MeshError, make_production_mesh
+    from repro_torch.serve.server import EmbeddingServer
+
+    with pytest.raises(MeshError, match="world size 1") as e:
+        make_production_mesh()
+    assert "256" in str(e.value)
+    cfg = HetaConfig(data=DataConfig(scale=0.002, batch_size=32)).updated(
+        serve=dict(production_mesh=True))
+    sess = Heta(cfg, device=cuda_device)
+    sess.build_graph()
+    sess.partition()
+    sess.profile_and_cache()
+    sess.compile()
+    store = sess.infer_all()
+    with pytest.raises(MeshError, match="world size 1"):
+        sess.serve()
+    ids = np.random.default_rng(0).integers(0, store.embeddings[store.target_type].shape[0],
+                                            (6, 5))
+    with EmbeddingServer(store) as plain, EmbeddingServer(store, mesh=nccl_mesh) as meshed:
+        for row in ids:
+            a, b = plain.query(row, store.target_type), meshed.query(row, store.target_type)
+            assert np.array_equal(a.embeddings, b.embeddings)
+            assert np.array_equal(a.scores, b.scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "jamba-1.5-large-398b"])
+def test_cuda_pctx_prefill_is_the_plain_prefill(cuda_device, nccl_mesh, name):
+    """Reduced MoE configurations, prefill under ParallelCtx(expert_parallel,
+    sp_attention, constrain_activations) on the one-rank NCCL mesh: kernel 8
+    once per attention layer, logits and cache bit for bit the prefill
+    without a context (at world 1 the exchange is the identity)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, make_prefill_step
+    from repro_torch.models.transformer import ParallelCtx
+
+    cfg = get_arch(name).reduced()
+    params = init_params(cfg, 0, cuda_device)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)),
+                             device=cuda_device)
+    pctx = ParallelCtx(mesh=nccl_mesh, dp_axes=("data",), moe="expert_parallel",
+                       sp_attention=True, constrain_activations=True)
+    kops.reset_launch_counts()
+    logits, cache = make_prefill_step(cfg, pctx=pctx)(params, {"tokens": tokens})
+    assert kops.KERNELS["flash_attention"].launches == len(cfg.attn_slots) * cfg.n_periods
+    want, want_cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+    assert torch.equal(logits, want)
+    assert sorted(cache) == sorted(want_cache)
+    assert all(torch.equal(cache[k], want_cache[k]) for k in cache)
+
+
+@pytest.mark.cuda
+def test_cuda_pctx_chunked_attention_and_dots(cuda_device, nccl_mesh):
+    """Reduced llama3.2-3b (fp32) on the card: loss_fn under attn_chunk=16 within
+    1e-5 of the einsum path, every gradient leaf within 1e-4 relative
+    Frobenius; remat_policy="dots" gradients bit for bit "full"'s."""
+    import dataclasses
+
+    import repro_torch.models.transformer as tt
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.optim.adam import tree_leaves
+
+    cfg = get_arch("llama3.2-3b").reduced()
+    params = init_params(cfg, 0, cuda_device)
+    batch = _lm_train_batch(cfg, 0)
+    chunk = ParallelCtx(mesh=nccl_mesh, dp_axes=("data",), attn_chunk=16)
+    loss_e, g_e = tt._value_and_grad(cfg, params, batch)
+    loss_c, g_c = tt._value_and_grad(cfg, params, batch, pctx=chunk)
+    _, g_d = tt._value_and_grad(cfg, params, batch,
+                                pctx=dataclasses.replace(chunk, remat_policy="dots"))
+    assert abs(float(loss_c) - float(loss_e)) <= 1e-5
+    for a, b, d in zip(tree_leaves(g_c), tree_leaves(g_e), tree_leaves(g_d)):
+        assert float((a - b).norm() / b.norm().clamp(min=1e-30)) <= 1e-4
+        assert torch.equal(d, a)

@@ -449,10 +449,17 @@ def test_encoder_only_refuses_decode():
 
 
 def test_pctx_still_raises():
+    """A sequence-parallel request the port cannot place (plain tensors over
+    a mesh of four devices) raises; it is never ignored."""
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models.transformer import ParallelCtx
+
     cfg = get_arch("granite-moe-1b-a400m").reduced()
     p = {k: v[0, 0] for k, v in init_params(cfg, 0, "cpu")["blocks"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="pctx"):
-        attention_block(p, cfg, torch.zeros(1, 2, cfg.d_model), torch.arange(2), pctx=object())
+    pctx = ParallelCtx(mesh=make_abstract_mesh((2, 2), ("data", "model")), dp_axes=("data",),
+                       sp_attention=True)
+    with pytest.raises(ValueError, match="sharding constraint"):
+        attention_block(p, cfg, torch.zeros(1, 2, cfg.d_model), torch.arange(2), pctx=pctx)
 
 
 # --------------------------------------------------------------------------

@@ -279,9 +279,11 @@ with a non-zero exit and no result line):
      layers ssd_chunk=64 within 1e-4 (times the logits' largest magnitude
      where above 1) of the default, ssd_bf16's distance printed.  The group
      is destroyed.  (e) python -m repro_torch.launch.dryrun for llama3.2-3b
-     x decode_32k and qwen3-moe-30b-a3b x train_4k --variant ep, each in a
-     process of its own with the card hidden (the fake 256-rank group must
-     be its default group), both at once: each ends [   ok], its record
+     x decode_32k, qwen3-moe-30b-a3b x train_4k --variant ep and
+     jamba-1.5-large-398b x train_4k and x prefill_32k (its Mamba blocks'
+     sharded SSD after a MoE block), each in a process of its own with the
+     card hidden (the fake 256-rank group must be its default group), all
+     four at once, each bounded at 600 s: each ends [   ok], its record
      printed.  The multi-rank exchange is held on the CPU (gloo): NCCL
      takes one rank per GPU.
 
@@ -2290,7 +2292,9 @@ GRANITE_PREFILL_MS_9B = 72.33
 LLAMA_STEP_MS_9C, LLAMA_PEAK_GB_9C = 1250.50, 50.83
 PCTX_TRAIN_STEPS = 6
 # the dry runs of phase 9d (e): (arch, input shape, variant)
-DRYRUNS = (("llama3.2-3b", "decode_32k", None), ("qwen3-moe-30b-a3b", "train_4k", "ep"))
+DRYRUNS = (("llama3.2-3b", "decode_32k", None), ("qwen3-moe-30b-a3b", "train_4k", "ep"),
+           ("jamba-1.5-large-398b", "train_4k", None),
+           ("jamba-1.5-large-398b", "prefill_32k", None))
 
 
 def run_mesh(report: dict, card: str):

@@ -35,6 +35,11 @@ What a record holds, and how it is counted:
     plus ``total`` and ``count_*``: the result bytes of each
     ``_c10d_functional`` (and ``c10d``) collective that DTensor or the
     model issues on rank 0, the reference's proxy.
+  * ``collectives_by_line`` and ``flops_by_line`` (with ``--by-line N``
+    only): the N model source lines (the innermost frame under
+    ``repro_torch/models/``, the autograd call for a backward) whose ops
+    moved the most collective bytes and did the most FLOPs, each as
+    ``[line, op, amount]``.
   * The layer loop is plain Python, so every layer runs and is counted: the
     reference's 1- and 2-period extrapolation has no counterpart
     (``loop_collectives`` equals ``collectives``; ``per_period`` is None).
@@ -58,6 +63,7 @@ and its collective is counted):
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results/dryrun]
+  python -m repro_torch.launch.dryrun --arch granite-moe-1b-a400m --shape train_4k --by-line 8
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ import json
 import os
 import time
 import traceback
+from collections import Counter
 from typing import Dict, Optional
 
 import torch
@@ -123,10 +130,13 @@ class CollectiveCounter(TorchDispatchMode):
     DTensor op is handed back to DTensor (``NotImplemented``), so what is
     seen is what it runs locally, its redistributions included."""
 
-    def __init__(self):
+    def __init__(self, by_line: bool = False):
         super().__init__()
         self.collectives: Dict[str, int] = {}
         self._flops = FlopCounterMode(display=False)
+        # (model source line, op) -> collective bytes / FLOPs, when asked
+        self.by_line: Optional[Dict[str, Counter]] = (
+            {"collectives": Counter(), "flops": Counter()} if by_line else None)
 
     @property
     def flops(self) -> int:
@@ -143,7 +153,9 @@ class CollectiveCounter(TorchDispatchMode):
         if any(issubclass(t, FakeTensor) for t in types):
             return out
         packet = func._overloadpacket
+        flops0 = self.flops
         self._flops._count_flops(packet, out, args, kwargs)
+        nbytes = 0
         if func.namespace in ("_c10d_functional", "c10d"):
             name = _COLLECTIVES.get(packet.__name__)
             if name is not None:
@@ -152,7 +164,20 @@ class CollectiveCounter(TorchDispatchMode):
                 c[name] = c.get(name, 0) + nbytes
                 c["total"] = c.get("total", 0) + nbytes
                 c[f"count_{name}"] = c.get(f"count_{name}", 0) + 1
+        if self.by_line is not None and (nbytes or self.flops > flops0):
+            key = (_model_line(), packet.__name__)
+            self.by_line["collectives"][key] += nbytes
+            self.by_line["flops"][key] += self.flops - flops0
         return out
+
+
+def _model_line() -> str:
+    """``file:line`` of the innermost frame of the call stack that lies in
+    ``repro_torch/models/`` (``?`` when none does)."""
+    for frame in reversed(traceback.extract_stack()):
+        if f"repro_torch{os.sep}models{os.sep}" in frame.filename:
+            return f"{os.path.basename(frame.filename)}:{frame.lineno}"
+    return "?"
 
 
 def fake_world(world: int) -> None:
@@ -262,10 +287,12 @@ def _prepare(cfg: ArchConfig, shape: InputShape, mesh, variant: Optional[str] = 
     return plan, arg_bytes, lambda: serve(params, cache, token, plan.cache_len - 1)
 
 
-def _analyze(cfg: ArchConfig, shape: InputShape, mesh, variant: Optional[str] = None) -> Dict:
-    """One step on ``mesh``, its arguments placed before the count starts."""
+def _analyze(cfg: ArchConfig, shape: InputShape, mesh, variant: Optional[str] = None,
+             by_line: int = 0) -> Dict:
+    """One step on ``mesh``, its arguments placed before the count starts;
+    with ``by_line``, that many top model lines for collectives and FLOPs."""
     plan, arg_bytes, step = _prepare(cfg, shape, mesh, variant)
-    counter = CollectiveCounter()
+    counter = CollectiveCounter(by_line=by_line > 0)
     t0 = time.time()
     with counter:
         step()
@@ -276,15 +303,19 @@ def _analyze(cfg: ArchConfig, shape: InputShape, mesh, variant: Optional[str] = 
                    "peak_bytes": None},
         "flops": float(counter.flops),
         "collectives": dict(counter.collectives),
+        **({f"{kind}_by_line": [[line, op, amount]
+                                for (line, op), amount in tally.most_common(by_line) if amount]
+            for kind, tally in counter.by_line.items()} if by_line else {}),
     }
 
 
 def run_one(
     arch: str, shape_name: str, multi_pod: bool = False, out_dir: Optional[str] = None,
-    variant: Optional[str] = None, mesh=None,
+    variant: Optional[str] = None, mesh=None, by_line: int = 0,
 ) -> Dict:
     """One combination's record.  ``mesh`` (a ``DeviceMesh`` over the fake
-    group) replaces the production mesh, for tests at a small size."""
+    group) replaces the production mesh, for tests at a small size;
+    ``by_line`` adds the top model lines (see the module docstring)."""
     cfg = ARCHS[arch]
     shape = INPUT_SHAPES[shape_name]
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
@@ -309,7 +340,7 @@ def run_one(
         if mesh is None:
             fake_world(512 if multi_pod else 256)
             mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-        full = _analyze(cfg, shape, mesh, variant=variant)
+        full = _analyze(cfg, shape, mesh, variant=variant, by_line=by_line)
         rec.update(
             status="ok",
             step_kind=plan.kind,
@@ -324,6 +355,7 @@ def run_one(
             loop_collectives=full["collectives"],
             per_period=None,
             num_devices=mesh.size(),
+            **{k: full[k] for k in ("collectives_by_line", "flops_by_line") if k in full},
         )
     except Exception as e:  # a failure here is a framework bug — surface it
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
@@ -352,6 +384,9 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default=None, help="e.g. 'ep' (expert-parallel MoE)")
     ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--by-line", type=int, default=0, metavar="N",
+                    help="also record and print the N model lines with the most "
+                         "collective bytes and FLOPs")
     args = ap.parse_args(argv)
 
     combos = []
@@ -365,7 +400,8 @@ def main(argv=None):
 
     fails = 0
     for a, s, mp in combos:
-        rec = run_one(a, s, multi_pod=mp, out_dir=args.out, variant=args.variant)
+        rec = run_one(a, s, multi_pod=mp, out_dir=args.out, variant=args.variant,
+                      by_line=args.by_line)
         status = rec["status"]
         extra = ""
         if status == "ok":
@@ -381,6 +417,10 @@ def main(argv=None):
         elif status == "skip":
             extra = " " + rec["reason"]
         print(f"[{status:>5}] {a} × {s} × {rec['mesh']}{extra}", flush=True)
+        for line, op, amount in rec.get("collectives_by_line", []):
+            print(f"    coll {amount / 2**30:10.2f} GiB  {op:24s} {line}")
+        for line, op, amount in rec.get("flops_by_line", []):
+            print(f"    flops {amount:.3e}  {op:24s} {line}")
     if dist.is_initialized():
         dist.destroy_process_group()
     if fails:

@@ -21,7 +21,12 @@ tensor made inside the model (positions, masks, RoPE tables) is lifted to
 each block, as tensor parallelism reduces them (``reduce_partial``); a head
 count the model axis does not divide is gathered before the split
 (``split_dim``) and its gradient on the way back (``grad_like``);
-``constrain`` is ``with_sharding_constraint``'s counterpart.  On plain
+``constrain`` is ``with_sharding_constraint``'s counterpart
+(``spec_placements`` its placements); ``local_map`` runs a function that
+mixes nothing across shards on each rank's local tensors (``shard_map``'s
+counterpart); ``full_local`` gathers a DTensor's whole value into a plain
+tensor on every rank; ``match_placements`` puts a block's output in its
+input's placements.  On plain
 tensors each is the identity (``constrain`` on a one-device mesh).
 """
 
@@ -36,7 +41,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = ["rms_norm", "apply_rope", "rope_frequencies", "he_init", "embed_init",
            "SHAPE_ONLY", "replicate_like", "reduce_partial", "split_dim", "grad_like", "mesh_axes",
-           "constrain"]
+           "constrain", "spec_placements", "full_local", "match_placements", "batch_axes",
+           "local_map"]
 
 # stands in for a generator on the meta device: its leaves are allocated, never drawn
 SHAPE_ONLY = types.SimpleNamespace(device=torch.device("meta"))
@@ -64,13 +70,19 @@ def constrain(t: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
             raise ValueError(f"a sharding constraint over a mesh of {n} devices needs "
                              "DTensor activations; got a plain tensor")
         return t
-    dm = t.device_mesh
+    return t.redistribute(t.device_mesh, spec_placements(t.device_mesh, spec))
+
+
+def spec_placements(dm, spec: tuple) -> list:
+    """The DTensor placements ``constrain`` gives ``spec`` on the
+    ``DeviceMesh`` ``dm``: ``Shard(dim)`` on each mesh dim that a dim of
+    ``spec`` names (alone or in a tuple), ``Replicate()`` on the others."""
     placements = []
     for name in dm.mesh_dim_names:
         dims = [i for i, ax in enumerate(spec)
                 if ax == name or (isinstance(ax, tuple) and name in ax)]
         placements.append(Shard(dims[0]) if dims else Replicate())
-    return t.redistribute(dm, placements)
+    return placements
 
 
 def reduce_partial(t: torch.Tensor) -> torch.Tensor:
@@ -118,6 +130,52 @@ def grad_like(t: torch.Tensor) -> torch.Tensor:
     if isinstance(t, DTensor):
         return DTensor.from_local(t.to_local(), t.device_mesh, t.placements, run_check=False,
                                   shape=t.shape, stride=t.stride())
+    return t
+
+
+def batch_axes(mesh, batch: int):
+    """The mesh's data axes (all but ``"model"``) when they divide
+    ``batch``; else None (the batch replicated)."""
+    axes = mesh_axes(mesh)
+    dp = tuple(a for a in axes if a != "model")
+    return dp if dp and batch % math.prod(axes[a] for a in dp) == 0 else None
+
+
+def local_map(fn, like: torch.Tensor, args, in_specs, out_specs):
+    """``fn`` on this rank's local shards, the counterpart of the
+    reference's ``shard_map``: each of ``args`` is placed by its spec on
+    ``like``'s mesh (a plain tensor lifted replicated first) and handed to
+    ``fn`` as its local tensor; each output (one tensor, or a tuple matched
+    to ``out_specs``) is lifted back by its spec.  ``fn`` must mix nothing
+    across the shards."""
+    mesh = like.device_mesh
+    out = fn(*(constrain(replicate_like(a, like), mesh, spec).to_local()
+               for a, spec in zip(args, in_specs)))
+
+    def lift(o, spec):
+        return DTensor.from_local(o, mesh, spec_placements(mesh, spec), run_check=False)
+
+    if isinstance(out, tuple):
+        return tuple(lift(o, spec) for o, spec in zip(out, out_specs))
+    return lift(out, out_specs)
+
+
+def match_placements(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` redistributed to ``like``'s placements when both are DTensors
+    (pending sums reduced, shards gathered or split as ``like`` has them);
+    else ``t`` itself."""
+    if isinstance(t, DTensor) and isinstance(like, DTensor):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def full_local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on this rank (gathered to ``Replicate()``,
+    then ``to_local``), so that an op the card's torch (2.11) gives no
+    sharding rule (``index_put_``) runs on plain tensors; a plain tensor as
+    it is."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim).to_local()
     return t
 
 

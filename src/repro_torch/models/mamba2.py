@@ -18,7 +18,10 @@ exponents are segment sums, not differences of prefix sums (the same
 function, rounded far less: see ``_ssd_chunked``);
 ``decode_mamba_block`` writes the new conv and SSM states into the caller's
 tensors (the reference returns new arrays); a sequence the SSD chunk does
-not divide raises ``ValueError`` (the reference asserts).  The reference has
+not divide raises ``ValueError`` (the reference asserts).  Under the dry
+run (DTensor operands) the SSD runs on each rank's own shard, placed as
+the reference's GSPMD plan places it (``_ssd_sharded``); the causal conv
+concatenates its zero history where the reference pads.  The reference has
 no Pallas kernel here: the scan and the recurrent step are plain tensor ops
 on both sides.
 """
@@ -29,9 +32,11 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import he_init, reduce_partial, replicate_like, rms_norm
+from repro_torch.models.layers import (batch_axes, he_init, local_map, mesh_axes,
+                                      reduce_partial, rms_norm)
 
 __all__ = ["mamba_params", "mamba_block", "decode_mamba_block"]
 
@@ -60,14 +65,55 @@ def mamba_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over time.  x [b, s, di], w [k, di]."""
+    """Depthwise causal conv over time.  x [b, s, di], w [k, di].  The k - 1
+    zero steps before the first token are concatenated in front (the values
+    ``F.pad`` gives), made from x's first step so that a DTensor keeps x's
+    placements: the card's torch (2.11) has no working sharding rule for a
+    pad of a sharded tensor."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = torch.cat([torch.zeros_like(x[:, :1])] * (k - 1) + [x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
     return out + b
 
 
 def _ssd_chunked(
+    x: torch.Tensor,  # [b, s, nh, hp]
+    dt: torch.Tensor,  # [b, s, nh] (post-softplus)
+    A: torch.Tensor,  # [nh] negative
+    B_: torch.Tensor,  # [b, s, N]
+    C_: torch.Tensor,  # [b, s, N]
+    chunk: int = 128,
+    return_state: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
+):
+    """The chunked SSD: ``y`` [b, s, nh, hp] (and the final state [b, nh,
+    hp, N] with ``return_state``).  DTensor operands go to
+    :func:`_ssd_sharded`; plain ones to :func:`_ssd_plain`."""
+    fn = _ssd_sharded if isinstance(x, DTensor) else _ssd_plain
+    return fn(x, dt, A, B_, C_, chunk, return_state, compute_dtype)
+
+
+def _ssd_sharded(x, dt, A, B_, C_, chunk, return_state, compute_dtype):
+    """The SSD of DTensor operands, on each rank's own shard.  The SSD
+    mixes neither batch rows nor heads (B and C are shared by every head),
+    so the operands are placed as the reference's GSPMD plan places them,
+    batch over the data axes and heads over ``"model"`` (where they divide;
+    else replicated), B and C replicated over ``"model"`` with any pending
+    sums reduced, and :func:`_ssd_plain` runs on the local tensors: no
+    collective inside.  DTensor's own rules would flatten a head dim sharded
+    behind the batch for the einsums' products, which the card's torch
+    (2.11) refuses, and 2.13 took only until a view met it."""
+    bax = batch_axes(x.device_mesh, x.shape[0])
+    mp = mesh_axes(x.device_mesh).get("model")
+    hax = "model" if mp and x.shape[2] % mp == 0 else None
+    ys, hs, bs = (bax, None, hax, None), (bax, hax, None, None), (bax, None, None)
+    return local_map(
+        lambda *a: _ssd_plain(*a, chunk, return_state, compute_dtype), x,
+        (x, dt, A, B_, C_), (ys, (bax, None, hax), (hax,), bs, bs),
+        (ys, hs) if return_state else ys)
+
+
+def _ssd_plain(
     x: torch.Tensor,  # [b, s, nh, hp]
     dt: torch.Tensor,  # [b, s, nh] (post-softplus)
     A: torch.Tensor,  # [nh] negative
@@ -102,12 +148,10 @@ def _ssd_chunked(
     # digits and the card (whose cumsum adds in another order) left the
     # CPU by 1e-5 in every decay.  Masked before exp, as in the reference:
     # the upper triangle must not reach exp() as anything but -inf.
-    below = replicate_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device), -1),
-                           x)
+    below = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device), -1)
     seg = torch.cumsum(torch.where(below[None, None, :, :, None], dA[:, :, :, None, :], 0.0),
                        dim=2)  # [b, nc, Q, Q, nh]: seg[i, j] = Σ_{j<k≤i} dA_k
-    tri = replicate_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device)),
-                         x)[None, None, :, :, None]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, None, :, :, None]
     decay = torch.exp(torch.where(tri, seg, float("-inf"))).to(cd)
     cb = torch.einsum("bcin,bcjn->bcij", Cb, Bb)[..., None]  # [b,nc,Q,Q,1]
     scores = cb * decay * dtb[:, :, None, :, :].to(cd)
@@ -121,7 +165,7 @@ def _ssd_chunked(
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(last[:, :, 0, :])  # [b, nc, nh]
-    H = replicate_like(torch.zeros((b, nh, hp, N), dtype=cd, device=x.device), x)
+    H = torch.zeros((b, nh, hp, N), dtype=cd, device=x.device)
     entering = []
     for c in range(nc):
         entering.append(H)

@@ -18,6 +18,13 @@ Where the port differs:
     kept picks ``w[t, k] · ye[idx[t, k], pos[t, k]]`` over ``k`` in order, in
     ``ye``'s type; a token with no kept pick gets 0.  ``moe_block_ep`` combines
     the same way, so on one rank it is ``moe_block`` bit for bit.
+  * **A DTensor combine runs on each rank's own experts**
+    (:func:`_combine_sharded`): with the experts split over the model axis,
+    each rank sums the picks of its own experts for its own tokens and the
+    per-rank sums are reduced into x's placements, about ``T·D`` a layer,
+    where gathering the expert outputs whole would move ``E·C·D`` (about
+    ``k·1.25`` times as much).  The reference's scatter-add leaves the same
+    partial sums to GSPMD.
   * **``moe_block_ep``** is the body of the reference's ``shard_map`` run on
     each rank's own shard: x ``[b/dp, s/mp, D]`` and the experts ``[E/mp,
     D, F]``, routed locally with the local capacity ``_capacity(cfg,
@@ -43,11 +50,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (constrain, he_init, mesh_axes, reduce_partial,
-                                      replicate_like, rms_norm)
+from repro_torch.models.layers import (batch_axes, constrain, full_local, grad_like, he_init,
+                                      match_placements, mesh_axes, reduce_partial,
+                                      replicate_like, rms_norm, spec_placements)
 
 __all__ = ["moe_params", "moe_block", "moe_block_ep", "mlp_params", "mlp_block",
            "router_stats"]
@@ -89,7 +97,11 @@ def _route(cfg: ArchConfig, h: torch.Tensor, router: torch.Tensor):
     ``jax.lax.top_k`` does."""
     logits = h.float() @ router
     probs = torch.softmax(logits, dim=-1)
-    weights, idx = torch.topk(probs, cfg.moe_topk, dim=-1)
+    # topk's values through gather (the same floats, the same gradients):
+    # gather's backward has a DTensor rule on the card's torch (2.11),
+    # topk's builds a plain zero tensor there
+    idx = torch.topk(probs.detach(), cfg.moe_topk, dim=-1).indices
+    weights = probs.gather(-1, idx)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     return idx, weights, probs
 
@@ -117,17 +129,21 @@ def _dispatch(cfg: ArchConfig, h: torch.Tensor, router: torch.Tensor, C: int):
     keep = pos < C
 
     # token ids into [E, C] slots; dropped picks land in the overflow
-    # column C, which is sliced off
-    slot_e = idx.reshape(-1)
-    slot_c = torch.where(keep, pos, C).reshape(-1)
-    tok = replicate_like(torch.arange(T, device=h.device).repeat_interleave(K), h)
-    gather_idx = replicate_like(torch.zeros((E, C + 1), dtype=torch.long, device=h.device), h)
+    # column C, which is sliced off.  Slots and rows are written and
+    # gathered on plain tensors: a DTensor's operands are gathered whole on
+    # every rank first, and the rows lifted back replicated (the card's
+    # torch, 2.11, has no sharding rule for index_put_, the indexing's
+    # backward included)
+    slot_e = full_local(idx.reshape(-1))
+    slot_c = full_local(torch.where(keep, pos, C).reshape(-1))
+    tok = torch.arange(T, device=slot_e.device).repeat_interleave(K)
+    gather_idx = torch.zeros((E, C + 1), dtype=torch.long, device=slot_e.device)
     gather_idx[slot_e, slot_c] = tok
-    slot_used = replicate_like(torch.zeros((E, C + 1), dtype=torch.bool, device=h.device), h)
-    slot_used[slot_e, slot_c] = keep.reshape(-1)
-    gather_idx, slot_used = gather_idx[:, :C], slot_used[:, :C]
+    slot_used = torch.zeros((E, C + 1), dtype=torch.bool, device=slot_e.device)
+    slot_used[slot_e, slot_c] = full_local(keep.reshape(-1))
+    gather_idx, slot_used = gather_idx[:, :C], replicate_like(slot_used[:, :C], h)
 
-    xe = h[gather_idx] * slot_used[..., None].to(h.dtype)  # [E, C, D]
+    xe = replicate_like(full_local(h)[gather_idx], h) * slot_used[..., None].to(h.dtype)  # [E, C, D]
     return xe, idx, weights, probs, pos, keep, slot_used
 
 
@@ -147,6 +163,37 @@ def _combine(ye: torch.Tensor, idx, weights, pos, keep) -> torch.Tensor:
     return out
 
 
+def _combine_sharded(ye: DTensor, idx, weights, pos, keep) -> torch.Tensor:
+    """:func:`_combine` of a DTensor ``ye`` whose experts the mesh's model
+    axis splits: ``ye`` is placed as (model, -, -) and the routing as
+    (data axes, -); each rank sums, in ``k`` order, the kept picks of its own
+    experts for its own tokens, and the result is those per-rank sums
+    pending over the model axis (``Partial``), tokens split as the routing.
+    Gradients come back as the placements imply: ``ye``'s summed over the
+    data axes, the weights' over the model axis.  Where the model axis does
+    not split the experts, :func:`_combine` on DTensor's own rules."""
+    mesh = ye.device_mesh
+    mp, E = mesh_axes(mesh).get("model", 1), ye.shape[0]
+    if mp == 1 or E % mp:
+        return _combine(ye, idx, weights, pos, keep)
+    T, D = idx.shape[0], ye.shape[-1]
+    names = mesh.mesh_dim_names
+    tok = spec_placements(mesh, (batch_axes(mesh, T), None))  # tokens as x splits them
+    # each rank's slice, and where its gradient goes: summed over the mesh
+    # dims that hold copies of the slice but computed other parts of it
+    ye_l = ye.redistribute(mesh, spec_placements(mesh, ("model", None, None))).to_local(
+        grad_placements=[Shard(0) if n == "model" else Partial() if t.is_shard() else t
+                         for n, t in zip(names, tok)])
+    partial = [Partial() if n == "model" else t for n, t in zip(names, tok)]
+    w_l = weights.redistribute(mesh, tok).to_local(grad_placements=partial)
+    idx_l, pos_l, keep_l = (t.redistribute(mesh, tok).to_local() for t in (idx, pos, keep))
+    el = E // mp
+    local_e = idx_l - mesh.get_local_rank("model") * el
+    mine = keep_l & (local_e >= 0) & (local_e < el)
+    out = _combine(ye_l, local_e.clamp(0, el - 1), w_l, pos_l, mine)
+    return DTensor.from_local(out, mesh, partial, run_check=False, shape=(T, D), stride=(D, 1))
+
+
 def moe_block(p: Dict, cfg: ArchConfig, x: torch.Tensor, return_aux: bool = False):
     """x [b, s, D] -> [b, s, D] with top-k expert FFNs (dropping at
     capacity).  With ``return_aux`` also ``{"aux_loss", "dropped"}``."""
@@ -154,10 +201,15 @@ def moe_block(p: Dict, cfg: ArchConfig, x: torch.Tensor, return_aux: bool = Fals
     T = b * s
     E = cfg.moe_experts
     C = _capacity(cfg, T)
-    h = rms_norm(x, p["norm"], cfg.norm_eps).reshape(T, D)
+    # a DTensor's gradient reaches the reshape back in h's own placements:
+    # the routing's may split the tokens over the model axis as well, which
+    # no [b, s, D] view of a batch over the data axes can take
+    h = grad_like(rms_norm(x, p["norm"], cfg.norm_eps).reshape(T, D))
     xe, idx, weights, probs, pos, keep, slot_used = _dispatch(cfg, h, p["router"], C)
     ye = _experts(xe, p["w1"], p["w3"], p["w2"])  # [E, C, D]
-    y = x + _combine(ye, idx, weights, pos, keep).reshape(b, s, D)
+    combine = _combine_sharded if isinstance(ye, DTensor) else _combine
+    # the residual stream keeps x's placements (pending sums reduced)
+    y = x + match_placements(combine(ye, idx, weights, pos, keep).reshape(b, s, D), x)
     if return_aux:
         # load-balance auxiliaries (Switch-style): fraction per expert
         me = probs.mean(0)

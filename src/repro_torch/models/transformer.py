@@ -83,8 +83,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import attention_block, attn_params, decode_attention_block
-from repro_torch.models.layers import (SHAPE_ONLY, constrain, embed_init, he_init,
-                                      reduce_partial, rms_norm)
+from repro_torch.models.layers import (SHAPE_ONLY, constrain, embed_init, grad_like,
+                                      he_init, reduce_partial, rms_norm)
 from repro_torch.models.mamba2 import (_causal_conv, _ssd_chunked, decode_mamba_block,
                                        mamba_block, mamba_params)
 from repro_torch.models.moe import mlp_block, mlp_params, moe_block, moe_block_ep, moe_params
@@ -352,7 +352,10 @@ def _train_logits(cfg: ArchConfig, params: Dict, batch: Dict, window: Optional[i
     slots = {kind: next(iter(blk.values())).shape[1] for kind, blk in params["blocks"].items()}
 
     def take(kind, per, row):
-        return {leaf: views[per * slots[kind] + row] for leaf, views in entries[kind].items()}
+        # a DTensor entry's gradient comes back in the entry's own placements,
+        # so that unbind's backward stacks gradients placed alike
+        return {leaf: grad_like(views[per * slots[kind] + row])
+                for leaf, views in entries[kind].items()}
 
     rows = _slot_rows(cfg)
     kw = {}

@@ -3,9 +3,13 @@ process of its own: ``python _moe_ep_rank.py RANK WORLD DIR``.
 
 It joins a gloo group through ``file://DIR/rendezvous``, builds the (data,
 model) mesh named in ``DIR/case.json``, places the numpy inputs of ``DIR``
-as DTensors (x over (data, model) on its batch and sequence, the experts
-over model, router and norm replicated), runs ``moe_block_ep`` and, on
-rank 0, writes the whole output to ``DIR/port_out.npy``.
+as DTensors (the experts over model, router and norm replicated), runs the
+block and, on rank 0, writes the whole output to ``DIR/port_out.npy``.
+The block is ``moe_block_ep`` (x over (data, model) on its batch and
+sequence) or, with ``"block": "gspmd"`` in the case, ``moe_block`` (x over
+data on its batch, as the sharding rules place it) with the gradients of
+``(out * g).sum()`` (``g`` from ``DIR/g.npy``) written to
+``DIR/port_grad_<name>.npy`` for x and each parameter.
 """
 
 import dataclasses
@@ -29,7 +33,7 @@ def main(rank: int, world: int, where: str) -> None:
         import repro_torch.configs.all_archs  # noqa: F401
         from repro_torch.configs import get_arch
         from repro_torch.launch.mesh import make_test_mesh
-        from repro_torch.models.moe import moe_block_ep
+        from repro_torch.models.moe import moe_block, moe_block_ep
 
         cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
                                   capacity_factor=case["capacity_factor"])
@@ -39,10 +43,23 @@ def main(rank: int, world: int, where: str) -> None:
              for k in ("w1", "w3", "w2")}
         p.update({k: distribute_tensor(load(k), mesh, [Replicate(), Replicate()])
                   for k in ("router", "norm")})
-        x = distribute_tensor(load("x"), mesh, [Shard(0), Shard(1)])
-        out = moe_block_ep(p, cfg, x, mesh, ("data",)).full_tensor()
+        if case.get("block") == "gspmd":
+            for v in p.values():
+                v.requires_grad_()
+            x = distribute_tensor(load("x"), mesh, [Shard(0), Replicate()]).requires_grad_()
+            out = moe_block(p, cfg, x)
+            g = distribute_tensor(load("g"), mesh, list(out.placements))
+            (out * g).sum().backward()
+            grads = {"x": x.grad, **{k: v.grad for k, v in p.items()}}
+            grads = {k: v.full_tensor() for k, v in grads.items()}
+        else:
+            x = distribute_tensor(load("x"), mesh, [Shard(0), Shard(1)])
+            out, grads = moe_block_ep(p, cfg, x, mesh, ("data",)), {}
+        out = out.full_tensor()
         if rank == 0:
-            np.save(os.path.join(where, "port_out.npy"), out.numpy())
+            np.save(os.path.join(where, "port_out.npy"), out.detach().numpy())
+            for k, v in grads.items():
+                np.save(os.path.join(where, f"port_grad_{k}.npy"), v.numpy())
     finally:
         dist.destroy_process_group()
 

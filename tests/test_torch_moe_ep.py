@@ -13,6 +13,12 @@ reference's ``moe_block_ep``, on the CPU over gloo.
     capacity (capacity factor 64) and at the configuration's default
     (1.25: each shard routes its own tokens at its own capacity, so picks
     drop by the shard, as in the reference): within 1e-5.
+  * Four ranks on a (2, 2) mesh run ``moe_block`` on DTensors placed as the
+    sharding rules place them (x's batch over data, the experts over
+    model), whose combine sums each rank's own experts
+    (``_combine_sharded``): the output within 1e-5 of the plain
+    ``moe_block`` on the same inputs, the gradients of x and of every
+    parameter within 1e-4 (through a fixed random projection of the output).
 
 NCCL takes one rank per GPU, so the multi-rank exchange is held here; the
 card runs the one-rank mesh (``chip_smoke.py`` phase 9d).  Every group
@@ -149,6 +155,45 @@ mesh = jax.make_mesh(tuple(case["mesh"]), ("data", "model"))
 out = jax.jit(lambda p_, x_: moe_block_ep(p_, cfg, x_, mesh, ("data",)))(p, load("x"))
 np.save(os.path.join(where, "ref_out.npy"), np.asarray(out))
 """
+
+
+def _run_ranks(tmp_path, extra=()):
+    """``tests/_moe_ep_rank.py`` as four processes over ``tmp_path`` (and
+    any ``extra`` processes started beside them), each to a clean exit."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    procs = list(extra) + [
+        subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "_moe_ep_rank.py"),
+                          str(r), "4", str(tmp_path)], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, env=env) for r in range(4)]
+    try:
+        for proc in procs:
+            _, err = proc.communicate(timeout=WAIT_S)
+            assert proc.returncode == 0, err[-3000:]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "granite-moe-1b-a400m"])
+def test_four_ranks_gspmd_block_matches_plain(name, tmp_path):
+    _, cfg, p_np, x_np = _case(name, 1.25, 5, b=4, s=32)
+    g = np.random.default_rng(6).standard_normal(x_np.shape).astype(np.float32)
+    for k, v in {**p_np, "x": x_np, "g": g}.items():
+        np.save(tmp_path / f"{k}.npy", v)
+    (tmp_path / "case.json").write_text(json.dumps(
+        {"arch": name, "capacity_factor": 1.25, "mesh": [2, 2], "block": "gspmd"}))
+    _run_ranks(tmp_path)
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in p_np.items()}
+    x = torch.from_numpy(x_np).requires_grad_()
+    want = moe_block(p, cfg, x)
+    (want * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(np.load(tmp_path / "port_out.npy"), want.detach().numpy(),
+                               atol=1e-5, rtol=0)
+    for k, t in {"x": x, **p}.items():
+        np.testing.assert_allclose(np.load(tmp_path / f"port_grad_{k}.npy"), t.grad.numpy(),
+                                   atol=1e-4, rtol=0, err_msg=k)
+    assert float(p["w2"].grad.abs().max()) > 0
 
 
 @pytest.mark.parametrize("capacity_factor", [64.0, 1.25], ids=["ample", "default"])

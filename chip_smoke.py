@@ -13,7 +13,8 @@ with a non-zero exit and no result line):
   2. build — every ``csrc/*.cu`` kernel compiled with nvcc for sm_90a, one
      process per source, all at once; the ptxas registers and spills of every
      instantiation of the kernels redesigned for Hopper (flash_attention's
-     wgmma kernel; stacked_mean_linear and relation_agg, both the template of
+     wgmma kernel, which must be instantiated at each of the head dims 32,
+     64, 80 and 128; stacked_mean_linear and relation_agg, both the template of
      ``csrc/mean_linear.cuh``, stacked_mean_linear_dh, stacked_attn_dh and
      stacked_attn_epilogue on the fp32 register-tiled core
      ``csrc/fp32_tile.cuh``; gather_rows; stacked_softmax_combine), none of
@@ -149,9 +150,13 @@ with a non-zero exit and no result line):
      shape (llama3.2-3b's and phase 9b's: granite 4,16,8,2048,2048,64
      causal, qwen3-moe 4,32,4,...,128, hubert 4,16,16,...,80 non-causal,
      llava 4,56,8,...,128, jamba reduced fp32; bf16 bound by operations at
-     989 TFLOP/s, library call scaled_dot_product_attention) and at one sq
-     = 1 decode shape; the redesigned kernels' ptxas registers and spills
-     again;
+     989 TFLOP/s, library call scaled_dot_product_attention; at each shape
+     the kernel that ran, by its name under torch.profiler in the path's
+     profiled prefill (phases 9 and 9b), the one the C entry point's route
+     picks: flash_attention_wgmma_kernel<d> for bf16 with sq >= 128 at every
+     head dim) and at one sq = 1 decode shape (its route:
+     flash_attention_bf16_kernel, the mma.sync kernel); the redesigned
+     kernels' ptxas registers and spills again;
   7c. launch layouts (the tuning table, kernels 1, 3 and 4) — at every
      shape of repro_torch.kernels.autotune.DEFAULT_SHAPES, in each variant
      (kernel 4: R-GAT's and HGT's operands; kernel 3: contiguous and HGT's
@@ -192,7 +197,9 @@ with a non-zero exit and no result line):
      ``--seed``: from reset launch counts, make_prefill_step on a 4 x 2048
      prompt drawn with numpy (flash_attention launched exactly once per
      layer), then 32 greedy decode steps against the cache padded to 2080;
-     prefill ms, decode ms/token and tokens/s.  Then the bf16 prefill
+     prefill ms, decode ms/token and tokens/s; one more prefill under
+     torch.profiler (device busy time, its top kernels, and all 28 of kernel
+     8's launches flash_attention_wgmma_kernel<128>).  Then the bf16 prefill
      logits with the kernel and with the einsum path, each against the fp32
      answer for the same weights: the kernel's within relative Frobenius
      error 2e-2 of it and no farther from it than the einsum path's (the
@@ -208,31 +215,34 @@ with a non-zero exit and no result line):
      greedy decode steps, printing prefill ms, prompt tokens/s, decode
      ms/token, tokens/s, peak device memory and the run's seconds; prefill
      launches flash_attention exactly once per attention layer, decode and
-     every other kernel never.  (a) granite-moe-1b-a400m, full size, bf16:
-     param_count, 24 launches, cache [24, 1, 4, 2080, 8, 64], router_stats
-     and the picks dropped by the first MoE layer at capacity_factor 1.25,
-     bf16 against fp32 logits (printed: routing is discontinuous); then at
-     full width, 2 layers, fp32: kernel 8's prefill logits within 1e-4 of the
-     einsum path's, at capacity_factor 64 prefill(2048) then decode(token
-     2048) within 1e-3 of forward(2049) on one row (cut from 4: capacity 64
-     makes the expert batches 51 times larger), and a 32-slot ring buffer fed
-     48 tokens within 1e-3 of the windowed forward.  (b) qwen3-moe-30b-a3b at
-     full depth (48 layers, 61.1 GB of bf16 weights, drawn slice by slice):
-     as (a), bf16 against fp32 on 2 layers.  (c) mamba2-1.3b, full size:
-     no launch at all, conv [48, 1, 4, 3, 4096] and ssm [48, 1, 4, 64, 64,
-     128] float32, bf16 against fp32 logits (printed); 2 layers fp32:
-     prefill(1920) then 128 decode steps within 1e-3 of forward(2048) at
-     every decoded position.  (d) hubert-xlarge, full size: the encoder over
-     4 x 2048 frames of width 512, 48 launches (non-causal, d 80: the
-     mma.sync route), logits [4, 2048, 504], make_serve_step refused; 2
-     layers fp32: kernel within 1e-4 of einsum.  (e) llava-next-34b at full
-     width, 16 of 60 layers (cut: 68.8 GB at full depth): 576 patches + 1472
-     tokens a row, 16 launches, decode from position 2048; 2 layers fp32:
-     kernel within 1e-4 of einsum, prefill then one decode step within 1e-3
-     of the forward.  (f) jamba-1.5-large-398b at reduced() size (cut: one
-     full-width period is 90 GB; fp32, 2 periods, d_model 256): prefill of 4
-     x 256, 2 launches, 32 decode steps; at capacity_factor 64 prefill(128)
-     then 128 decode steps within 1e-3 of forward(256).
+     every other kernel never, and under torch.profiler every one of a
+     prefill's launches runs the kernel its route picks (bf16 at 4 x 2048:
+     flash_attention_wgmma_kernel<d>).  (a) granite-moe-1b-a400m, full size,
+     bf16: param_count, 24 launches, cache [24, 1, 4, 2080, 8, 64],
+     router_stats and the picks dropped by the first MoE layer at
+     capacity_factor 1.25, bf16 against fp32 logits (printed: routing is
+     discontinuous); then at full width, 2 layers, fp32: kernel 8's prefill
+     logits within 1e-4 of the einsum path's, at capacity_factor 64
+     prefill(2048) then decode(token 2048) within 1e-3 of forward(2049) on one
+     row (cut from 4: capacity 64 makes the expert batches 51 times larger),
+     and a 32-slot ring buffer fed 48 tokens within 1e-3 of the windowed
+     forward.  (b) qwen3-moe-30b-a3b at full depth (48 layers, 61.1 GB of bf16
+     weights, drawn slice by slice): as (a), bf16 against fp32 on 2 layers.
+     (c) mamba2-1.3b, full size: no launch at all, conv [48, 1, 4, 3, 4096]
+     and ssm [48, 1, 4, 64, 64, 128] float32, bf16 against fp32 logits
+     (printed); 2 layers fp32: prefill(1920) then 128 decode steps within 1e-3
+     of forward(2048) at every decoded position.  (d) hubert-xlarge, full
+     size: the encoder over 4 x 2048 frames of width 512, 48 launches
+     (non-causal, d 80), all 48 of flash_attention_wgmma_kernel<80> under the
+     profiler, logits [4, 2048, 504], make_serve_step refused; 2 layers fp32:
+     kernel within 1e-4 of einsum.  (e) llava-next-34b at full width, 16 of 60
+     layers (cut: 68.8 GB at full depth): 576 patches + 1472 tokens a row, 16
+     launches, decode from position 2048; 2 layers fp32: kernel within 1e-4 of
+     einsum, prefill then one decode step within 1e-3 of the forward.  (f)
+     jamba-1.5-large-398b at reduced() size (cut: one full-width period is 90
+     GB; fp32, 2 periods, d_model 256): prefill of 4 x 256, 2 launches, 32
+     decode steps; at capacity_factor 64 prefill(128) then 128 decode steps
+     within 1e-3 of forward(256).
   9c. LM training — (a) each of LM_TRAIN_RUNS, the train state drawn on the
      card from ``--seed``, batches from TokenPipeline copied from pinned
      memory (hubert: frames, llava: patches, drawn with numpy): from reset
@@ -378,6 +388,24 @@ def ptxas_entries(log: str):
     return out
 
 
+def wgmma_head_dims(entries) -> list:
+    """The head dims at which a ptxas report's entries (``redesigned_report``)
+    instantiate flash_attention_wgmma_kernel (mangled: ``...kernelILi80EE...``)."""
+    import re
+
+    found = (re.search(r"flash_attention_wgmma_kernelILi(\d+)E", e["kernel"]) for e in entries)
+    return sorted(int(m.group(1)) for m in found if m)
+
+
+def short_kernel_name(mangled: str) -> str:
+    """``flash_attention_wgmma_kernel<80>`` for its mangled name; others as
+    they are."""
+    import re
+
+    m = re.search(r"(flash_attention_wgmma_kernel)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
 def sass_counts(lib: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How often each SASS opcode appears in ``cuobjdump -sass`` of ``lib``."""
     import os
@@ -405,7 +433,8 @@ def redesigned_report(build) -> dict:
 def log_redesigned(rep: dict) -> None:
     for name in REDESIGNED:
         for e in rep[name]:
-            log(f"  {name}: {e['kernel']} {e['registers']} registers, spill stores "
+            log(f"  {name}: {short_kernel_name(e['kernel'])} {e['registers']} registers, "
+                f"spill stores "
                 f"{e['spill_stores']} B, spill loads {e['spill_loads']} B (ptxas)")
     log(f"  flash_attention SASS: {rep['flash_attention_sass']}")
 
@@ -1057,6 +1086,59 @@ def time_softmax_combine(shape, device):
 # kernel 8 (flash_attention): inputs, plain version, timing
 # --------------------------------------------------------------------------
 
+# kernel 8's route as its C entry point picks it (csrc/flash_attention.cu,
+# launch): fp32 the scalar kernel; bf16 the wgmma kernel at every head dim
+# where there is a whole tile of 128 queries and a key, the mma.sync kernel
+# below that
+FLASH_WGMMA_SQ = 128
+
+
+def flash_kernel_name(shape) -> str:
+    """The kernel a call of kernel 8 at a recorded shape runs, named as the
+    profiler names it, without namespace and arguments."""
+    b, h, hk, sq, sk, d, causal, window, off, code = shape
+    if code == 0:
+        return f"flash_attention_fp32_kernel<{d}>"
+    if sq >= FLASH_WGMMA_SQ and sk >= 1:
+        return f"flash_attention_wgmma_kernel<{d}>"
+    return f"flash_attention_bf16_kernel<{d}>"
+
+
+def flash_kernel_counts(events) -> dict:
+    """{kernel 8's kernel name: launches} of (profiler kernel name, count)
+    pairs, every other kernel left out."""
+    import re
+
+    out = collections.Counter()
+    for name, count in events:
+        m = re.search(r"(flash_attention_\w+_kernel<\d+>)", name)
+        if m:
+            out[m.group(1)] += count
+    return dict(out)
+
+
+# the kernel each LM path's kernel-8 shape ran, by shape, as the profiler
+# saw it in the path's profiled prefill (hold_flash_route); phase 7 prints it.
+# (In this script's process a torch.profiler context holding one raw launch
+# of kernel 8 and little else has come back without it, after phase 9b and
+# in phase 7; the prefills' profiles keep every launch.)
+FLASH_ROUTES: dict = {}
+
+
+def hold_flash_route(label: str, ran: dict, shapes: dict) -> None:
+    """A profiled prefill's kernel 8 launches (``ran``, flash_kernel_counts)
+    must be those of one prefill (``shapes``: launches by shape), each
+    running the kernel its shape's route picks; that name is kept in
+    FLASH_ROUTES for each shape."""
+    want = collections.Counter()
+    for shape, count in shapes.items():
+        want[flash_kernel_name(shape)] += count
+    check(ran == dict(want),
+          f"{label}: the profiled prefill's kernel 8 launches ran {ran}, want {dict(want)}")
+    FLASH_ROUTES.update((shape, flash_kernel_name(shape)) for shape in shapes)
+    log(f"  [{label}] the profiled prefill's kernel 8 launches ran {ran or 'nothing'}")
+
+
 # a recorded flash_attention shape: (b, h, hk, sq, sk, d, causal, window (-1:
 # none), q_offset, dtype code (0 fp32, 1 bf16))
 FLASH_TOL = {0: dict(atol=2e-5, rtol=2e-5), 1: dict(atol=3e-2, rtol=3e-2)}
@@ -1148,6 +1230,7 @@ def time_flash(shape, device):
            for q, k, v in sets]
     ms = time_ms(fa.launch_kernel, raw, iters=20)
     graph_ms = time_ms(fa.launch_kernel, raw, iters=20, graph=True)
+    kernel = FLASH_ROUTES.get(shape)
     views = [tuple(t.transpose(1, 2) for t in qkv) for qkv in sets]
     plain_ms = time_ms(attention_ref, [(*qkv, kw["causal"], kw["window"], kw["q_offset"])
                                        for qkv in views], iters=10)
@@ -1172,7 +1255,7 @@ def time_flash(shape, device):
     # capture: its graph time is not measured
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, bytes=nbytes, flops=flops, graph_ms=graph_ms,
-                plain_graph_ms=None, library_graph_ms=library_graph_ms)
+                plain_graph_ms=None, library_graph_ms=library_graph_ms, kernel=kernel)
 
 
 # phase 3's cases of kernel 8: the reference's ATTN_CASES, the rows with no
@@ -1286,6 +1369,10 @@ def run_lm(report: dict, seed: int, batch: int = 4, prompt: int = 2048, new_toke
     res = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s / new_tokens * 1e3,
                decode_tokens_per_s=tok_s, peak_gb=peak_gb, launches=launches,
                shapes=shape_dict(shapes), batch=batch, prompt=prompt, new_tokens=new_tokens)
+    res["prefill_profile"] = device_profile("llama3.2-3b", "one prefill",
+                                            lambda: prefill(params, {"tokens": prompts}))
+    hold_flash_route("llama3.2-3b", res["prefill_profile"]["flash_kernels"],
+                     shapes["flash_attention"])
 
     # bf16 at full depth: the kernel and the einsum path, each against the
     # exact answer for the same weights (upcast to fp32, einsum path in fp32)
@@ -1487,11 +1574,12 @@ def device_profile(label: str, what: str, fn, rows: int = 5) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash = flash_kernel_counts((e.key, e.count) for e in kernels)
     top = [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]]
     log(f"  [{label}] {what} under the profiler: device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall; most device time (kernel, ms, launches): {top}")
-    return dict(busy_ms=busy_ms, wall_ms=wall_ms, top=top)
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, top=top, flash_kernels=flash)
 
 
 def serve_lm_run(label: str, cfg, params, batch, new_tokens: int) -> tuple:
@@ -1552,6 +1640,7 @@ def serve_lm_run(label: str, cfg, params, batch, new_tokens: int) -> tuple:
     check(launches["flash_attention"] == want, f"{label}: decode launched flash_attention")
     check(not any(v for k, v in launches.items() if k != "flash_attention"),
           f"{label}: the LM path launched other kernels: {launches}")
+    hold_flash_route(label, res["prefill_profile"]["flash_kernels"], shapes["flash_attention"])
     res.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
                shapes=shape_dict(shapes))
     log(f"  [{label}] prefill {b}x{sq}: {prefill_s * 1e3:.2f} ms ({res['prompt_tokens_per_s']:,.0f}"
@@ -3834,6 +3923,9 @@ def kernel_table(paths: dict, errs: dict, device):
                     f" ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']}), "
                     f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s, "
                     f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+                if t.get("kernel"):
+                    log(f"      ran {t['kernel']} (its name under torch.profiler in the "
+                        "path's profiled prefill)")
                 if "graph_ms" in t:
                     log("      as one CUDA graph (no host launch cost): " + ", ".join(
                         f"{k} {'none' if t[k] is None else f'{t[k]:.4f} ms'}"
@@ -3987,6 +4079,11 @@ def main(argv=None) -> int:
     check(not any(e["spill_stores"] or e["spill_loads"]
                   for name in REDESIGNED for e in report["redesigned"][name]),
           "a redesigned kernel spills registers")
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+
+    dims = wgmma_head_dims(report["redesigned"]["flash_attention"])
+    check(dims == sorted(HEAD_DIMS), f"flash_attention_wgmma_kernel is instantiated at head "
+          f"dims {dims}, want every head dim the op takes, {HEAD_DIMS}")
     check(all(report["redesigned"]["flash_attention_sass"].values()),
           "the flash attention library holds no HGMMA or no UTMALDG: the Hopper kernel "
           "was not built")
@@ -4104,6 +4201,9 @@ def main(argv=None) -> int:
         "production mesh refused; granite's prefill, llama's training and mamba2's forward "
         "under ParallelCtx; the meta-device dry run")
     paths["granite-moe-1b-a400m pctx prefill"] = run_parallel(report, args.seed)
+    unseen = {shape for shapes in paths.values() for shape in shapes["flash_attention"]}
+    unseen -= set(FLASH_ROUTES)
+    check(not unseen, f"kernel 8 ran at shapes no profiled prefill saw: {sorted(unseen)}")
     order = [f"{m} {p}" for p in ("training", "serving") for m in ("rgcn", "rgat", "hgt")]
     order += ["rgcn raf training"] + [f"{m} unfused {p}" for p in ("training", "serving")
                                       for m in ("rgat", "hgt")]
@@ -4127,7 +4227,8 @@ def main(argv=None) -> int:
     log(f"  flash_attention at the decode shape {FLASH_DECODE_SHAPE} (not on the path: "
         f"decode attention is plain torch ops): kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.3g} ms ({t['bound_by']}), max abs err {err:.3g}")
+        f"{t['bound_ms']:.3g} ms ({t['bound_by']}), max abs err {err:.3g}; its route picks "
+        f"{flash_kernel_name(FLASH_DECODE_SHAPE)}")
     report["flash_decode_shape"] = dict(shape=list(FLASH_DECODE_SHAPE), max_abs_err=err, **t)
 
     log("== 7c launch layouts of kernels 1, 3 and 4: the restated rules, every candidate "

@@ -40,34 +40,52 @@
 //     0 (the Pallas kernel gives such a row the mean of the masked v rows,
 //     since exp(-1e30 - (-1e30)) = 1; the oracle gives 0).
 //
-// bf16 (the model's type), two kernels; the C entry point picks one:
-//   * d = 64 or 128 with sq >= 128 (the LM prefill and every long prompt):
-//     the Hopper kernel flash_attention_wgmma_kernel.  One block per (batch *
-//     head, tile of 128 queries), 384 threads in three warpgroups.  Warpgroup
-//     2 is the producer: after `setmaxnreg` drops it to 40 registers, one of
-//     its threads loads the q tile once and keeps a two-stage ring of
-//     128-key K and V tiles full with TMA (cp.async.bulk.tensor from tensor
-//     maps built on the operands' own [b, s, h, d] strides, so GQA is a
-//     coordinate and ragged sq and sk are the TMA's zero fill), completing on
-//     `full` mbarriers and waiting on `empty` ones.  Warpgroups 0 and 1 (232
-//     registers each) own 64 query rows apiece: s = q k^T by wgmma
-//     m64n128k16 with both operands in shared memory (K-major, 128-byte
-//     swizzle), fp32 accumulate; the online softmax in registers (scores in
-//     log2 units, masked scores skipped as -inf, masks evaluated only on
-//     tiles that cross sk or the band's edge); then o += p v by wgmma
-//     m64nDk16 with p as the register A operand (bf16; the accumulator
-//     layout of s is the A layout) and v as B through the transpose bit (v
-//     stays d-contiguous).  The two warpgroups run their softmax and their
-//     products in turn against the same ring, so one's wgmma overlaps the
-//     other's softmax, and TMA overlaps both.
-//   * the other head dims (32, 80) and short sq (decode, sq = 1): the
-//     mma.sync kernel flash_attention_bf16_kernel, m16n8k16 from 4 warps
-//     over 64-query x 64-key tiles, K and V staged with 16-byte loads (the
-//     first tensor-core version; a 128-query tile would leave a decode
+// bf16 (the model's type), two kernels; the C entry point picks one by sq:
+//   * sq >= 128 (every prefill, every long prompt), at each head dim the op
+//     takes (32, 64, 80, 128): the Hopper kernel flash_attention_wgmma_kernel<D>.
+//     One block per (batch * head, tile of 128 queries), 384 threads in three
+//     warpgroups.  Warpgroup 2 is the producer: after `setmaxnreg` drops it to
+//     40 registers, one of its threads loads the q tile once and keeps a
+//     two-stage ring of 128-key K and V tiles full with TMA
+//     (cp.async.bulk.tensor from tensor maps built on the operands' own [b, s,
+//     h, d] strides, so GQA is a coordinate and ragged sq and sk are the TMA's
+//     zero fill), completing on `full` mbarriers and waiting on `empty` ones.
+//     Every tile is ceil(D / 64) column blocks of [128][64] bf16 in the
+//     128-byte swizzle; the tensor maps' d extent is D, so at d 80 and 32 the
+//     columns D..64 ceil(D / 64) - 1 of the last block are the TMA's zero fill
+//     (no padded copy in device memory, no read of a neighbouring head's
+//     columns when q/k/v are views of a fused projection).  Warpgroups 0 and 1
+//     (232 registers each) own 64 query rows apiece: s = q k^T by D / 16 steps
+//     of wgmma m64n128k16 with both operands in shared memory (K-major,
+//     128-byte swizzle; no step touches the zero columns), fp32 accumulate;
+//     the online softmax in registers (scores in log2 units, masked scores
+//     skipped as -inf, masks evaluated only on tiles that cross sk or the
+//     band's edge); then o += p v by wgmma m64nDk16 with p as the register A
+//     operand (bf16; the accumulator layout of s is the A layout) and v as B
+//     through the transpose bit (v stays d-contiguous; at d 80 one
+//     instruction's N spans the first column block and 16 columns of the
+//     second, lbo apart, the layout d 128 uses across its two blocks, so d 80
+//     needs no second swizzle mode and no second tensor map).  The two
+//     warpgroups run their softmax and their products in turn against the same
+//     ring, so one's wgmma overlaps the other's softmax, and TMA overlaps both.
+//   * sq < 128 (decode, sq = 1, and short prompts, which no path times at
+//     length): the mma.sync kernel flash_attention_bf16_kernel, m16n8k16 from
+//     4 warps over 64-query x 64-key tiles, K and V staged with 16-byte loads
+//     (the first tensor-core version; a 128-query tile would leave a decode
 //     step's block idle).  The scores' C fragments are the A fragments of p,
 //     so p never goes through shared memory.
 // Both keep the rounding of the Pallas kernel: p is rounded to bf16 before
 // p @ v, the output written in bf16.
+//
+// What bounds the wgmma kernel at hubert-xlarge's prefill (b, h, kv, s, d) =
+// (4, 16, 16, 2048, 80), non-causal: on paper operations, 8.6e10 FLOP, 0.087
+// ms at 989 TFLOP/s, against 84 MB of q, k, v and out, 0.025 ms.  On the
+// card neither: the softmax's per-tile work (exp2, max, sum, the rescale of
+// o on the CUDA cores) does not shrink with d, and the two-stage ring holds
+// each block's next K/V tile back until both warpgroups release a stage, so
+// at d 80 and 32 the loads and the exponentials take most of each k tile.
+// tools/flash_variants.py times copies of this source with one part of the
+// tile loop taken out (PERF.md records what it measured).
 
 // fp32 (tests, reduced configs): scalar fp32 FMAs on the CUDA cores (the
 // tensor cores would round the operands): 256 threads, each owning 4 query
@@ -436,7 +454,8 @@ __global__ void __launch_bounds__(kThreads16) flash_attention_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64 and 128 with sq >= 128: wgmma + TMA, warp-specialized
+// bf16 with sq >= 128, every head dim (32, 64, 80, 128): wgmma + TMA,
+// warp-specialized
 // ---------------------------------------------------------------------------
 
 constexpr int kWQ = 128;        // queries per block: two consumer warpgroups of 64
@@ -446,13 +465,17 @@ constexpr int kWThreads = 384;  // consumer warpgroups 0 and 1, producer warpgro
 constexpr int kAtom = 64;       // bf16 columns of one 128-byte swizzled row
 
 // byte offsets inside the 1024-aligned dynamic shared memory; each operand
-// tile is D / 64 column blocks of [rows][64] bf16 in TMA's 128-byte swizzle
+// tile is ceil(D / 64) column blocks of [rows][64] bf16 in TMA's 128-byte
+// swizzle.  At d 80 and 32 the last block is partly out of the tensor map's
+// d extent: TMA writes those columns as zeros and counts the whole box in its
+// transaction bytes, so the tile sizes below (shared-memory offsets and the
+// mbarriers' expected bytes alike) are whole blocks
 template <int D>
 struct WgLayout {
-  static constexpr int kCB = D / kAtom;
+  static constexpr int kCB = (D + kAtom - 1) / kAtom;
   static constexpr int kBlock = kWQ * kAtom * 2;  // one column block (kWQ == kWK)
-  static constexpr int kQBytes = kWQ * D * 2;
-  static constexpr int kKVBytes = kWK * D * 2;    // one K or one V tile
+  static constexpr int kQBytes = kCB * kBlock;
+  static constexpr int kKVBytes = kCB * kBlock;   // one K or one V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
@@ -607,10 +630,51 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 80) += a (64 x 16, registers) b (16 x 80); b MN-major in shared
+// memory (128-byte swizzle, the transpose bit set): columns 0..63 from one
+// column block, 64..79 from the next, lbo further on
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32) += a (64 x 16, registers) b (16 x 32); b MN-major in shared
+// memory (128-byte swizzle, the transpose bit set): the first 32 columns of
+// one column block
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128, "no p v product for this head dim");
   if constexpr (D == 128) wgmma_rs_n128(o, a, db);
-  else wgmma_rs_n64(o, a, db);
+  else if constexpr (D == 80) wgmma_rs_n80(o, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else wgmma_rs_n32(o, a, db);
 }
 
 template <int D>
@@ -806,7 +870,10 @@ EncodeTiled encode_tiled() {
 }
 
 // a [B, S, Hx, D] bf16 operand with element strides st as a 4-d tensor map
-// (d, head, position, batch) whose box is 64 columns x one head x 128 rows
+// (d, head, position, batch) whose box is 64 columns x one head x 128 rows.
+// The d extent is D itself: at d 80 the box at column 64 reads columns 64..79
+// and fills 80..127 with zeros, at d 32 the one box fills 32..63, so no
+// column past D (a neighbouring head's, in a fused projection) is read
 bool encode_map(CUtensorMap* map, const void* ptr, long long B, long long S, long long Hx, int D,
                 const Strides& st) {
   EncodeTiled fn = encode_tiled();
@@ -843,7 +910,10 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, const Problem& p,
            long long B, long long KV, cudaStream_t stream) {
   constexpr bool kF32 = sizeof(T) == 4;
-  if constexpr (!kF32 && (D == 64 || D == 128)) {
+  // bf16 with a whole query tile: the wgmma kernel at every head dim.  A
+  // refused launch returns its error (no retry on another kernel).  sk = 0
+  // has no tensor map; the mma.sync kernel writes its zeros
+  if constexpr (!kF32) {
     if (p.sq >= kWQ && p.sk >= 1) return launch_wgmma<D>(q, k, v, out, p, B, KV, stream);
   }
   constexpr size_t smem = kF32 ? smem_fp32<D>() : smem_bf16<D>();

@@ -16,6 +16,21 @@ dimension of each operand must be contiguous; in bf16 (the tensor-core
 kernel) each operand must also be 16-byte aligned with its other strides
 in multiples of 8 elements, as every tensor the model makes is.
 
+Which kernel of ``csrc/flash_attention.cu`` a CUDA call runs, by (dtype,
+head dim, sq); every head dim is one of ``HEAD_DIMS``:
+
+* bfloat16, sq >= 128 (and sk >= 1), any head dim: the Hopper kernel
+  ``flash_attention_wgmma_kernel<d>`` (wgmma + TMA, warp-specialised),
+  every LM prefill's route.  Its tiles are 64-column blocks; at d 80 and 32
+  the columns past d of the last block are the TMA's zero fill, not a
+  padded copy of the operand;
+* bfloat16, sq < 128 (a decode step, a short prompt): the ``mma.sync``
+  kernel ``flash_attention_bf16_kernel<d>``;
+* float32: the scalar kernel ``flash_attention_fp32_kernel<d>``.
+
+A launch the card refuses raises :class:`~repro_torch.kernels.ops.KernelLaunchError`;
+no call is retried on another kernel.
+
 The kernel has no backward, nor has the reference's (its LM training runs
 the XLA attention path, ``make_train_step(use_pallas=False)``).  So on CUDA
 the op raises :class:`RuntimeError` when grad mode is on and q, k or v

@@ -1052,6 +1052,66 @@ def test_cuda_flash_attention_ragged_matches_plain(cuda_device, d, sq, sk):
         assert not got.any()
 
 
+# bf16 cases of the wgmma route at d 32 and 80: hubert-xlarge's prefill,
+# one exact 128 x 128 tile causal or not, and d 80 with GQA 24:8, causal,
+# a window and a q_offset
+FLASH_WGMMA_CASES = [
+    (4, 16, 16, 2048, 2048, 80, False, None, 0),
+    (2, 4, 4, 128, 128, 32, False, None, 0),
+    (2, 4, 4, 128, 128, 80, False, None, 0),
+    (2, 4, 4, 128, 128, 32, True, None, 0),
+    (2, 4, 4, 128, 128, 80, True, None, 0),
+    (2, 24, 8, 1000, 1500, 80, True, 300, 500),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_WGMMA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_wgmma_head_dims_match_plain(cuda_device, case):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    causal, window, off = case[6:]
+    q, k, v = _flash_inputs(case, torch.bfloat16, cuda_device, sum(case[:6]))
+    kops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert kops.KERNELS["flash_attention"].launches == 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    plain = attention_ref(q, k, v, causal, window, off)
+    exact = attention_ref(q.float(), k.float(), v.float(), causal, window, off)
+    for want in (plain, exact):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **FLASH_TOL[torch.bfloat16])
+    k_err = float((got.float() - exact).norm())
+    p_err = float((plain.float() - exact).norm())
+    assert k_err <= 1.5 * p_err + 1e-6 * float(exact.norm()), (k_err, p_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 80])
+@pytest.mark.parametrize("sq, kernel", [(128, "flash_attention_wgmma_kernel"),
+                                        (2048, "flash_attention_wgmma_kernel"),
+                                        (1, "flash_attention_bf16_kernel")])
+def test_cuda_flash_attention_route(cuda_device, d, sq, kernel):
+    """bf16 with a whole 128-query tile runs the wgmma kernel at d 32 and 80
+    too; a decode step (sq = 1) the mma.sync kernel.  The kernel's name as
+    the profiler reports it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _flash_inputs((2, 4, 4, sq, 2048, d), torch.bfloat16, cuda_device, d + sq)
+    flash_attention(q, k, v, q_offset=2048 - sq)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, v, q_offset=2048 - sq)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "flash_attention" in e.key]
+    assert len(names) == 1 and f"{kernel}<{d}>" in names[0], names
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_raises_under_grad(cuda_device):
     """The kernel has no backward: under grad with an operand that requires
